@@ -1,6 +1,6 @@
 """Linear wave, plane source, homogeneous water box.
 
-TPU-native counterpart of /root/reference/numba-cpu/demo_linear_box.py and
+The counterpart of /root/reference/numba-cpu/demo_linear_box.py and
 cuda/demo_linear_box.py: 0.5 MHz windowed velocity source on the x- face,
 first-order absorbing boundary on x+, P=4 GLL hexes at 2 elements per
 wavelength, CFL 0.65 RK4.

@@ -73,7 +73,7 @@ def main():
     # cylinder imports are prismatic -> the factorized fast path; the
     # per-element indexed path remains the generic fallback
     print(f"stiffness impl: {model.impl}")
-    assert model.impl in ("extruded", "extruded_pallas", "indexed")
+    assert model.impl == "extruded"
     dt, spp = model.cfl_dt()
     tf = LENGTH / mat.sound_speed + args.periods / src.frequency
     nsteps = int(tf / dt) + 1

@@ -1,14 +1,14 @@
 """Multi-device Westervelt run over a sharded box — the analogue of the
 reference's `mpirun -n k python demo_nonlinear_box.py` (domain decomposition
-over MPI ranks; here a jax.sharding.Mesh with halo exchange over ICI).
+over MPI ranks; here a jax.sharding.Mesh with a ppermute halo exchange).
 
 Driven by the SAME demo driver as the single-device demos (one code path
 for 1..N devices, like the reference's rank-agnostic scripts): progress,
 probes, checkpoints, snapshots and VTK output all work on the distributed
 state.
 
-On a CPU host this runs on virtual devices (functional check); on a real
-TPU slice the same code scales over chips.
+On a CPU host this runs on virtual devices (functional check); on a
+multi-GPU host the same code scales over the cards.
 
     python demos/demo_sharded_box.py [--devices 8] [--grid 2 2 2]
                                      [--elements 16] [--degree 4]

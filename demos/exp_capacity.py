@@ -1,16 +1,10 @@
-"""Single-chip capacity experiment: how large a Westervelt mesh fits ONE
-TPU when the geometry stream is corner-compressed.
-
-The fused kernel's G stream is the model's dominant HBM allocation
-(6 f32/quadrature point: 6.2 GB at 134M DOF — with fields, diagonals and
-XLA temporaries that overflows a 16 GB chip).  The corner-streamed kernel
-(fustpu.ops.pallas_stiffness.PallasStiffnessCorner) stores 37 floats/CELL
-instead (345 MB at 134M DOF, ~18x less), trading ~1.6x apply time for
-~4x mesh capacity — the r3 role found for it after the bandwidth thesis
-failed (BENCH_NOTES r3).
+"""Single-card capacity experiment: how large a structured Westervelt
+mesh fits ONE card.  The G stream (6 f32 per quadrature point: 6.2 GB at
+134M DOF) is the model's dominant device allocation; the script builds
+the model, times a few steps and prints the peak device memory.
 
     python demos/exp_capacity.py [--cells 664 56 56] [--degree 4]
-                                 [--steps 10] [--impl pallas_corner]
+                                 [--steps 10]
 """
 
 import sys
@@ -29,8 +23,6 @@ def main():
     p.add_argument("--cells", type=int, nargs=3, default=(664, 56, 56))
     p.add_argument("--degree", type=int, default=4)
     p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--impl", default="pallas_corner",
-                   choices=["pallas_corner", "pallas", "mm"])
     args = p.parse_args()
 
     import jax
@@ -51,22 +43,24 @@ def main():
     t0 = time.perf_counter()
     model = WesterveltModel(mesh, mat, src, mesh.boundary_facets("x-"),
                             mesh.all_boundary_facets(),
-                            dtype=jnp.float32, stiffness_impl=args.impl)
-    print(f"setup {time.perf_counter()-t0:.1f} s; impl={model.impl} "
-          f"corner={model._corner}", flush=True)
+                            dtype=jnp.float32)
+    print(f"setup {time.perf_counter()-t0:.1f} s; impl={model.impl}",
+          flush=True)
     dt, _ = model.cfl_dt(0.4)
     s = model.init_state()
     t0 = time.perf_counter()
     s, _ = model.solve(s, dt, args.steps)
-    _ = float(jnp.ravel(s.u)[0])
+    jax.block_until_ready(s)
     print(f"first solve ({args.steps} steps incl compile): "
           f"{time.perf_counter()-t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     s, _ = model.solve(s, dt, args.steps)
-    _ = float(jnp.ravel(s.u)[0])
+    jax.block_until_ready(s)
     per = (time.perf_counter() - t0) / args.steps
     print(f"steady: {per*1e3:.1f} ms/step "
-          f"({mesh.ndofs/per/1e9:.2f} GDOF/s-step)", flush=True)
+          f"({mesh.ndofs/per/1e9:.2f} GDOF/s-step), peak_bytes_in_use "
+          f"{(jax.devices()[0].memory_stats() or {}).get('peak_bytes_in_use')}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,11 @@
-"""Single-chip capacity experiment for IMPORTED (prismatic) meshes: how
-large a Westervelt cylinder fits ONE TPU with the corner-streamed
-extruded kernel (fustpu.ops.pallas_extruded.PallasExtrudedCorner).
-
-The G-stream extruded kernel stores 6 f32 per quadrature point — at
-10^8+ DOF that alone exceeds the chip (17 GB at 110M DOF, P=4).  The
-corner stream stores 37 f32 per CELL (~20x less), the same trade the
-structured corner kernel makes (demos/exp_capacity.py) — this is the
-imported-mesh configuration of the reference's 10^8+-DOF MPI runs
+"""Single-card capacity experiment for IMPORTED (prismatic) meshes: how
+large a Westervelt cylinder fits ONE card on the 'extruded' path, which
+stores 6 f32 per quadrature point of geometry (4.1 GB at ~100M DOF, P=4)
+— the imported-mesh configuration of the reference's 10^8+-DOF MPI runs
 (BASELINE.md; /root/reference/cuda/scatterer.py:104-277).
 
     python demos/exp_capacity_imported.py [--m 48] [--nz 120]
-        [--degree 4] [--steps 10] [--impl pallas_corner]
-        (defaults ~100M DOF: corner stream ~210 MB vs ~4.1 GB G stream)
+        [--degree 4] [--steps 10]
 """
 
 import sys
@@ -31,20 +25,9 @@ def main():
                    help="butterfly sectors (2D footprint resolution)")
     p.add_argument("--mr", type=int, default=24)
     p.add_argument("--nr-ann", type=int, default=24)
-    p.add_argument("--nz", type=int, default=120,
-                   help="layers; lane budget prefers WIDE footprints "
-                        "over deep extrusions (ez = nz*(P+1) pads to "
-                        "128 multiples in every VMEM plane)")
+    p.add_argument("--nz", type=int, default=120, help="layers")
     p.add_argument("--degree", type=int, default=4)
     p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--impl", default="pallas_corner",
-                   choices=["pallas_corner", "extruded_pallas",
-                            "extruded"])
-    p.add_argument("--aot-check", action="store_true",
-                   help="no TPU needed: AOT-compile the solve against a "
-                        "deviceless v5e topology and print XLA's memory "
-                        "analysis (does this config FIT?) + certified "
-                        "per-step traffic, then exit")
     p.add_argument("--radius", type=float, default=0.035)
     p.add_argument("--length", type=float, default=0.12)
     p.add_argument("--piston", type=float, default=0.01)
@@ -57,10 +40,8 @@ def main():
     from fustpu.mesh.extruded import as_extruded
     from fustpu.mesh.shapes import cylinder_mesh
     from fustpu.mesh.unstructured import UnstructuredHexMesh
-    from fustpu.models.westervelt import WesterveltModel
-    from fustpu.utils.benchmarks import _sync
-
     from fustpu.mesh.msh_io import _facets_from_quads
+    from fustpu.models.westervelt import WesterveltModel
 
     t0 = time.perf_counter()
     v, c, tagged = cylinder_mesh(args.radius, args.length, args.piston,
@@ -81,69 +62,31 @@ def main():
                    attenuation_dB=0.3)
     src = Source(frequency=1.0e6, amplitude=1.0e5)
     model = WesterveltModel(mesh, mat, src, mesh.boundary_facets(1),
-                            mesh.boundary_facets(2), dtype=jnp.float32,
-                            stiffness_impl=args.impl)
+                            mesh.boundary_facets(2), dtype=jnp.float32)
     t_setup = time.perf_counter() - t0
-    print(f"model: impl={model.impl} ext_corner="
-          f"{getattr(model, '_ext_corner', False)}  setup {t_setup:.1f}s",
-          flush=True)
+    print(f"model: impl={model.impl}  setup {t_setup:.1f}s", flush=True)
 
     dt, _ = model.cfl_dt(0.35)
 
-    if args.aot_check:
-        from jax.experimental import topologies
-        from fustpu.models.timestepping import RKState
-
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", False)
-        topo = topologies.get_topology_desc(platform="tpu",
-                                            topology_name="v5e:2x2")
-        sh = jax.sharding.SingleDeviceSharding(topo.devices[0])
-        s0 = jax.eval_shape(lambda: model.init_state())
-
-        def solve2(u, v_, ku, kv, tt):
-            s, _ = model.solve(RKState(u, v_, ku, kv, tt), dt, 2)
-            return s.u
-
-        t0 = time.perf_counter()
-        avals = [jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=sh)
-                 for a in (s0.u, s0.v, s0.ku, s0.kv, s0.t)]
-        cc = jax.jit(solve2, in_shardings=(sh,) * 5,
-                     out_shardings=sh).lower(*avals).compile()
-        ma = cc.memory_analysis()
-        ca = cc.cost_analysis()
-        ca = ca[0] if isinstance(ca, list) else ca
-        tot = (ma.argument_size_in_bytes + ma.output_size_in_bytes
-               + ma.temp_size_in_bytes) / 2 ** 30
-        print(f"AOT v5e compile OK [{time.perf_counter() - t0:.0f}s]: "
-              f"args {ma.argument_size_in_bytes/2**30:.2f} + temps "
-              f"{ma.temp_size_in_bytes/2**30:.2f} + out "
-              f"{ma.output_size_in_bytes/2**30:.2f} = {tot:.2f} GiB "
-              f"(v5e HBM 16); certified traffic "
-              f"{ca.get('bytes accessed')/2/2**30:.2f} GiB/step -> SoL "
-              f"{ca.get('bytes accessed')/2/800e9*1e3:.0f} ms/step")
-        return
-
     state = model.init_state()
     # warm up with the SAME scan length that gets timed: solve(k) and
-    # solve(1) are different scan lengths, i.e. different executables —
-    # timing the first solve(k) measures a fresh multi-second compile,
-    # not the solver (the r5 "862 ms/step" artifact: steady was 46)
+    # solve(1) are different scan lengths, i.e. different executables
     t0 = time.perf_counter()
     state, _ = model.solve(state, dt, args.steps)
-    _sync(state.u)
+    jax.block_until_ready(state)
     print(f"first solve({args.steps}) incl. compile: "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     state, _ = model.solve(state, dt, args.steps)
-    _sync(state.u)
+    jax.block_until_ready(state)
     wall = time.perf_counter() - t0
     per = wall / args.steps * 1e3
     print(f"{args.steps} steps: {wall:.2f}s -> {per:.1f} ms/step "
           f"({mesh.ndofs * 4 / per / 1e6:.2f} GDOF/s RK4-stage rate)",
           flush=True)
     print(f"|u| max (finite check): "
-          f"{float(jnp.max(jnp.abs(state.u))):.3e}")
+          f"{float(jnp.max(jnp.abs(state.u))):.3e}, peak_bytes_in_use "
+          f"{(jax.devices()[0].memory_stats() or {}).get('peak_bytes_in_use')}")
 
 
 if __name__ == "__main__":

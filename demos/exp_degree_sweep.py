@@ -1,57 +1,41 @@
-"""Degree sweep of the stiffness apply on the real chip — the P-range of
-the reference's quadrature table (numba-cpu/demo_linear_box.py:46-56).
-Usage: python demos/exp_degree_sweep.py [Pmin Pmax] [--align]
+"""Degree sweep of the structured stiffness apply on the card — the
+P-range of the reference's quadrature table
+(numba-cpu/demo_linear_box.py:46-56).
 
---align picks ncz so ez = ncz*(P+1) sits next to a multiple of 128: the
-kernel's working planes put ez on the TPU lane dimension, and the
-padding tax is the whole P=8..10 "cliff" (BENCH_NOTES r3)."""
+    python demos/exp_degree_sweep.py [Pmin Pmax]
+"""
 
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import jax.numpy as jnp
-import numpy as np
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-from fustpu.mesh.box import build_box_mesh
-from fustpu.models.discretization import Discretization, \
-    resolve_stiffness_impl
-from fustpu.ops import pallas_stiffness as ps
-from fustpu.ops import spectral_mm as mm
-from fustpu.utils import benchmarks as B
+from fustpu.mesh.box import build_box_mesh  # noqa: E402
+from fustpu.models.discretization import Discretization  # noqa: E402
+from fustpu.ops import spectral_mm as mm  # noqa: E402
+from fustpu.utils import benchmarks as B  # noqa: E402
 
 
 def main():
-    args = [a for a in sys.argv[1:] if a != "--align"]
-    align = "--align" in sys.argv
-    lo = int(args[0]) if len(args) > 0 else 2
-    hi = int(args[1]) if len(args) > 1 else 10
+    lo = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+    hi = int(sys.argv[2]) if len(sys.argv) > 2 else 10
+    dev = B.require_gpu()
+    print(f"device: {dev.device_kind} ({B.card_info()})", flush=True)
     dtype = jnp.float32
-    base = B.sync_baseline()
     for P in range(lo, hi + 1):
         nc = 16 if P <= 9 else 12
-        ncz = nc
-        if align:
-            # ncz (<= nc) minimising the lane-pad ratio of ez = ncz*n
-            n = P + 1
-            ncz = min(range(2, nc + 1),
-                      key=lambda c: (-(-(c * n) // 128) * 128) / (c * n))
-        mesh = build_box_mesh((nc, nc, ncz), P)
-        disc = Discretization(mesh, dtype)
-        impl = resolve_stiffness_impl("auto", disc)
+        mesh = build_box_mesh((nc, nc, nc), P)
+        op = Discretization(mesh, dtype).mm_op
         x = jnp.asarray(np.random.default_rng(0).standard_normal(
             mesh.grid_shape), dtype)
-        if impl == "pallas":
-            op = disc.pallas_op()
-            fn = lambda p, v: ps.stiffness_apply_pallas(p, v)
-        else:
-            op = disc.mm_op
-            fn = lambda p, v: mm.stiffness_apply_mm(p, v)
-        t, _ = B.time_apply(fn, op, x, chain=30, reps=5, baseline=base)
+        t, _ = B.time_apply(lambda p, v: mm.stiffness_apply_mm(p, v), op,
+                            x, chain=30, reps=5)
         mb = B.min_bytes("stiffness", mesh, dtype)
-        print(f"P={P} {nc}^3 dofs={mesh.ndofs:>8} impl={impl:<6} "
-              f"{t*1e3:7.3f} ms  {mesh.ndofs/t/1e9:5.2f} GDOF/s  "
+        print(f"P={P} {nc}^3 dofs={mesh.ndofs:>8} {t*1e3:7.3f} ms  "
+              f"{mesh.ndofs/t/1e9:5.2f} GDOF/s  "
               f"{mb/t/1e9:6.1f} GB/s-implied", flush=True)
 
 

@@ -1,7 +1,8 @@
 """Where does the explicit-dofmap (unstructured) stiffness apply spend its
-time on the chip?  Ablation: gather only / +contractions / +scatter, and
-the contraction precision (HIGHEST f32-emulation vs bf16x3 decomposition).
-Informs the indexed-path optimisation direction."""
+time on the card?  Ablation: gather only / +contractions / +scatter, with
+sum-factorised per-cell contractions at HIGHEST (f32) and DEFAULT
+precision (TF32 on Hopper).  Informs the indexed-path optimisation
+direction."""
 
 import sys
 from pathlib import Path
@@ -56,9 +57,9 @@ def variants(G, coeff, dofmap, D, ndofs, n):
     return [
         ("gather only", gather_only),
         ("gather+contract(HI)", lambda p, x: no_scatter(p, x, _HI)),
-        ("gather+contract(bf16)", lambda p, x: no_scatter(p, x, _DEF)),
+        ("gather+contract(DEFAULT)", lambda p, x: no_scatter(p, x, _DEF)),
         ("full indexed (HI)", lambda p, x: full(p, x, _HI)),
-        ("full indexed (bf16)", lambda p, x: full(p, x, _DEF)),
+        ("full indexed (DEFAULT)", lambda p, x: full(p, x, _DEF)),
     ]
 
 
@@ -78,11 +79,11 @@ def main():
     coeff = jnp.asarray(np.ones(mesh.num_cells), dtype)
     x = jnp.asarray(np.random.default_rng(0).standard_normal(mesh.ndofs),
                     dtype)
-    base = B.sync_baseline()
+    dev = B.require_gpu()
+    print(f"device: {dev.device_kind} ({B.card_info()})", flush=True)
     for name, fn in variants(G, coeff, dofmap, D, mesh.ndofs, n):
         try:
-            t, _ = B.time_apply(fn, None, x, chain=20, reps=5,
-                                baseline=base)
+            t, _ = B.time_apply(fn, None, x, chain=20, reps=5)
             print(f"{name:<24} {t*1e3:8.3f} ms  "
                   f"{mesh.ndofs/t/1e9:5.2f} GDOF/s", flush=True)
         except Exception as e:

@@ -3,10 +3,10 @@ the reference's exp_kernel_speed.py (cuda/exp_kernel_speed.py: CLI dtype /
 degree / elements-per-wavelength; compares tensor-product vs basix DOF
 ordering to show global memory layout is a first-order performance knob).
 
-Here the compared "layouts" are the framework's stiffness implementations:
-  mm         matmul formulation (production fast path; MXU, tile-friendly)
-  windows    expanded 6D element-batch layout (trailing dims of size n —
-             the layout the TPU pads 25x; kept as the didactic baseline)
+Here the compared "layouts" are the framework's stiffness codes:
+  mm         the structured path (G in the expanded-grid layout)
+  windows    the einsum reference on the structured layout
+             (G as (ncx, n, ncy, n, ncz, n, 6), per-cell coefficients)
   indexed    explicit-dofmap gather/scatter path
 
     python demos/exp_kernel_speed.py f32 4 2
@@ -49,7 +49,8 @@ def main():
     G_idx = jnp.asarray(np.moveaxis(disc._G_host, 2, 0), dtype)
     x = jnp.asarray(
         np.random.default_rng(0).standard_normal(mesh.grid_shape), dtype)
-    base = B.sync_baseline()
+    dev = B.require_gpu()
+    print(f"device: {dev.device_kind} ({B.card_info()})", flush=True)
 
     variants = {
         "mm": (lambda p, v: __import__(
@@ -62,7 +63,7 @@ def main():
             mesh.ndofs).reshape(mesh.grid_shape), G_idx),
     }
     for name, (fn, p) in variants.items():
-        mean, std = B.time_apply(fn, p, x, chain=20, reps=5, baseline=base)
+        mean, std = B.time_apply(fn, p, x, chain=20, reps=5)
         print(f"{name:8s}: {mean*1e3:8.3f} ms/apply "
               f"(+-{std*1e3:.3f})  {mesh.ndofs/mean/1e9:6.2f} GDOF/s",
               flush=True)

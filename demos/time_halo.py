@@ -3,8 +3,8 @@ time_scatterer.py (numba-cpu/time_scatterer.py: 50-rep scatter timings).
 
 Times the sharded RK4 step with and without communication (halo_sum
 replaced by identity) to isolate the exchange cost, on whatever device
-mesh is available (virtual CPU devices by default; a real multi-chip TPU
-slice when present).
+mesh is available (virtual CPU devices by default; the cards of a
+multi-GPU host when present).
 
     python demos/time_halo.py [--devices 8] [--elements 16] [--degree 4]
 """

@@ -1,31 +1,32 @@
-"""fustpu — TPU-native matrix-free spectral-element solver for focused
-ultrasound (FUS) wave propagation.
+"""fustpu — matrix-free spectral-element solver for focused ultrasound
+(FUS) wave propagation, in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``adeebkor/fenicsx-fus-gpu`` (mounted read-only at /root/reference):
 
 - GLL spectral hex elements (degree P=2..10) with collocated GLL quadrature
   (diagonal mass matrix), tensor-product DOF ordering.
 - Sum-factorised matrix-free mass / stiffness / boundary-facet-mass operator
-  application, batched over cells and mapped onto the MXU.
+  application, batched over cells.
 - Linear second-order wave equation and the nonlinear Westervelt equation
   with windowed velocity sources and first-order absorbing boundaries.
 - Explicit RK4 time integration fully on device under ``jax.lax.scan``.
 - Multi-chip domain decomposition via ``jax.sharding.Mesh`` + ``shard_map``
-  with halo exchange over ICI (``lax.ppermute``) instead of MPI; multi-host
+  with halo exchange by ``lax.ppermute`` instead of MPI; multi-host
   process groups via ``jax.distributed`` (fustpu.parallel.multihost).
 - Unstructured conforming hex meshes imported from tagged Gmsh ``.msh``
   files, ASCII or binary (fustpu.mesh.unstructured / msh_io).  Prismatic
-  topologies (extrusions along any axis — every practical piston/column/
+  meshes (extrusions along any axis — every practical piston/column/
   bowl-fitted mesh) auto-detect and run a factorized fast path at
   ~structured speed (fustpu.mesh.extruded); anything else uses the
   explicit-dofmap indexed path.  Both shard over any device count
   (fustpu.parallel.extruded.shard_unstructured).
 
 Unlike the reference (CUDA thread-per-dof kernels + atomics + MPI halo
-exchange), assembly here is deterministic: on structured box meshes the
-global scatter-add is a closed-form separable "overlap add" (reshape+pad+add
-per axis, no scatter at all); on general index maps it is an XLA scatter-add.
+exchange), assembly on structured box meshes is deterministic: the global
+scatter-add is a closed-form separable "overlap add" (reshape+pad+add per
+axis, no scatter at all).  On general index maps it is an XLA scatter-add,
+which on a GPU sums with atomics in no fixed order.
 """
 
 __version__ = "0.1.0"

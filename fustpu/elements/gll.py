@@ -2,8 +2,8 @@
 
 The reference obtains these from basix (``basix.LagrangeVariant.gll_warped``
 elements + ``basix.QuadratureType.gll`` rules, e.g.
-/root/reference/numba-cpu/demo_linear_box.py:117-118,157-160).  basix does
-not exist on TPU hosts, so we compute them from first principles: GLL nodes
+/root/reference/numba-cpu/demo_linear_box.py:117-118,157-160).  fustpu does
+not depend on basix, so we compute them from first principles: GLL nodes
 are the roots of (1-x^2) P'_N(x); weights are w_i = 2 / (N(N+1) P_N(x_i)^2).
 
 Everything here is setup-time host code and runs in float64 numpy.

@@ -4,18 +4,18 @@ structured-z) — the production fast path for imported meshes.
 The reference runs its flagship imports (the piston cylinder,
 /root/reference/cuda/demo_linear_piston.py:83-90) through a
 layout-agnostic CUDA kernel at full speed
-(/root/reference/cuda/operators.py:73-192).  On TPU the equivalent
-layout-agnostic path (explicit-dofmap gather/scatter) is ~10x off per DOF
-— XLA serializes per-element gathers (BENCH_NOTES).  But imported FUS
+(/root/reference/cuda/operators.py:73-192).  Here the equivalent
+layout-agnostic path (explicit-dofmap gather/scatter, dense per-cell
+operators) moves and computes far more per DOF.  But imported FUS
 meshes are prisms: every practical piston/column mesh extrudes a 2D
 unstructured quad mesh through z layers.  For prismatic TOPOLOGY the
 dofmap FACTORIZES:
 
     dof(stack, (i, j), z) = row2d[stack, i*n+j] * gz + z,   gz = nz*P + 1
 
-so the gather/scatter become vectorized ROW operations (one row per
-(stack, i, j), z on the lane dimension) and every contraction keeps >= gz
-lanes — the layout trap disappears.  Geometry stays fully general
+so the gather/scatter become vectorized ROW operations (one contiguous
+row of gz values per (stack, i, j)) and the in-cell contractions act on
+whole rows.  Geometry stays fully general
 trilinear (curved layer surfaces, graded layer heights, arbitrary 2D
 footprints): the standard 6-component G captures it; only the topology
 must be an extrusion.  Non-prismatic imports fall back to the indexed

@@ -222,8 +222,8 @@ def _assemble_mesh(path, node_ids, coords, hexes, quads, degree: int,
         ex = as_extruded(mesh)
         if ex is not None:
             return ex
-    # non-prismatic import -> indexed path: sweep-sort cells so the
-    # gather/scatter engine's first-touch windows stay small
+    # non-prismatic import -> indexed path: sweep-sort cells so each
+    # cell batch's first-touch DOF ids stay in a narrow range
     from fustpu.mesh.unstructured import locality_order
 
     return locality_order(mesh)

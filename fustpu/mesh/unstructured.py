@@ -177,9 +177,8 @@ class UnstructuredHexMesh:
         """(dofmap (ncells, n^3) int32, ndofs): the `_cluster` ids
         relabelled by FIRST TOUCH in cell-major order — consecutive
         cells' dofs get consecutive ids, so any cell batch addresses a
-        compact id window, the locality property the TPU gather/scatter
-        engine (fustpu.ops.pallas_gather) windows over.  Semantically
-        free (everything downstream is dofmap-consistent);
+        compact id range (locality for the indexed gather/scatter).
+        Semantically free (everything downstream is dofmap-consistent);
         deterministic."""
         inverse, ndofs = self._cluster
         dofmap = _first_touch(inverse, ndofs)
@@ -322,7 +321,7 @@ def _rcm_order(mesh: UnstructuredHexMesh) -> np.ndarray | None:
     graph-topological front minimiser (an axis sweep is its geometric
     special case — RCM also handles curved/bent domains where no single
     axis bounds the front).  Evaluated as one more locality_order
-    candidate on the engine's actual window metric."""
+    candidate."""
     try:
         from scipy import sparse
         from scipy.sparse.csgraph import reverse_cuthill_mckee
@@ -346,25 +345,35 @@ def _rcm_order(mesh: UnstructuredHexMesh) -> np.ndarray | None:
                       np.int64)
 
 
+# cell-batch width (DOF ids) over which locality_order scores the id span
+_SPAN_TILE = 2048
+
+
+def dof_span(dofmap: np.ndarray, tile: int = _SPAN_TILE) -> int:
+    """Largest id range (max - min + 1) addressed by any run of `tile`
+    consecutive entries of the flat cell-major dofmap: the 'front' of
+    the cell ordering, which bounds the working set of a cell batch's
+    gather and scatter."""
+    flat = np.asarray(dofmap, np.int64).reshape(-1)
+    pad = (-flat.size) % tile
+    if pad:
+        flat = np.concatenate([flat, np.full(pad, flat[-1])])
+    t = flat.reshape(-1, tile)
+    return int((t.max(axis=1) - t.min(axis=1)).max()) + 1
+
+
 def locality_order(mesh: UnstructuredHexMesh) -> UnstructuredHexMesh:
-    """Reorder cells along the axis sweep that minimises the gather/
-    scatter engine's window size.
+    """Reorder cells along the sweep that minimises `dof_span` of the
+    first-touch numbering.
 
-    The engine's MXU work is proportional to the window row count WR,
-    which pick_wr sizes from the per-tile id span of the first-touch
-    numbering; the span is the 'front' of the cell ordering (ids live as
-    long as a later cell still touches them).  An axis sweep bounds the
-    front by a cross-section layer, and which axis is best depends on
-    the mesh (demos/exp_cell_order.py: 0.78x one-hot FLOPs on the
-    engine-bench cylinder vs its file order; Morton is 1.7x WORSE — its
-    front straddles octant seams).  Candidates are evaluated on the
-    ACTUAL windowing metric and the file order is kept unless a sweep
-    strictly improves it.  Applied automatically to imported
-    non-prismatic meshes (mesh.msh_io.read_msh) — the layout-tuning
-    counterpart of the reference's TP dof-ordering experiment
-    (/root/reference/cuda/exp_kernel_speed.py:88-104)."""
-    from fustpu.ops.pallas_gather import build_plan
-
+    The span is the 'front' of the cell ordering (ids live as long as a
+    later cell still touches them).  An axis sweep bounds the front by a
+    cross-section layer, and which axis is best depends on the mesh; the
+    reverse Cuthill-McKee order is a further candidate.  The file order
+    is kept unless a candidate strictly improves it.  Applied
+    automatically to imported non-prismatic meshes (mesh.msh_io.read_msh)
+    — the layout-tuning counterpart of the reference's TP dof-ordering
+    experiment (/root/reference/cuda/exp_kernel_speed.py:88-104)."""
     inverse, ndofs = mesh._cluster
     inv2 = inverse.reshape(mesh.num_cells, -1)
     cent = mesh.vertices[mesh.cells].mean(axis=1)
@@ -379,13 +388,7 @@ def locality_order(mesh: UnstructuredHexMesh) -> UnstructuredHexMesh:
     best, best_cost = None, None
     for perm in cands:
         flat = (inv2 if perm is None else inv2[perm]).reshape(-1)
-        dm = _first_touch(flat, ndofs)
-        # score the ACTUAL plan the builder produces (window rows x
-        # window count, residual spill as tiebreak) — not a re-derived
-        # model of its attempt ladder, which would drift
-        plan = build_plan(dm.astype(np.int64), ndofs)
-        wr, _, _, _, nwin = plan.statics[:5]
-        cost = (wr * nwin, int(plan.spos.shape[0]))
+        cost = dof_span(_first_touch(flat, ndofs))
         if best_cost is None or cost < best_cost:
             best, best_cost = perm, cost
     return mesh if best is None else reorder_cells(mesh, best)

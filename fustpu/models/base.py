@@ -51,8 +51,8 @@ class WaveModelBase:
 
     def solve(self, state, dt: float, num_steps: int, tf=None, probe=None):
         """State fields are (gx, gy, gz) at the API; the scan runs on flat
-        vectors internally (lane-padding on odd grid dims costs ~2x on
-        every elementwise pass; flat vectors tile perfectly).  Probes
+        vectors internally (odd 3D grid dims tile badly for the
+        elementwise passes; flat vectors tile perfectly).  Probes
         observe a 3D view."""
         key = (num_steps, tf is not None, probe)
         if key not in self._solver_cache:

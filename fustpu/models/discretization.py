@@ -10,8 +10,8 @@ mass-type operator (cell or facet) is *globally diagonal*, so each fixed
 coefficient field yields a precomputed diagonal vector and an apply is one
 elementwise multiply (`mass_diag_host` / `facet_diag_host`).  The reference
 instead re-runs a gather/scale/atomic-scatter kernel per apply
-(cuda/operators.py:18-70).  The stiffness operator uses the matmul
-formulation (fustpu.ops.spectral_mm).
+(cuda/operators.py:18-70).  The stiffness operator has one path per mesh
+class (resolve_stiffness_impl).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ class Discretization:
 
     Works for structured BoxMesh (node-grid fast paths) and
     UnstructuredHexMesh (explicit-dofmap indexed path) alike; the mesh
-    kind selects which stiffness implementations are available."""
+    class selects the stiffness path (resolve_stiffness_impl)."""
 
     def __init__(self, mesh, dtype=jnp.float32):
         self.mesh = mesh
@@ -61,136 +61,35 @@ class Discretization:
 
     @functools.cached_property
     def _G_host(self):
-        """(cells, n^3, 6) metric factors, float64 host — computed lazily:
-        the corner-streamed kernel derives G in VMEM from cell corners and
-        never needs this array (6 f64/quad-point = 12.5 GB host at 134M
-        DOF, the dominant setup allocation)."""
+        """(cells, n^3, 6) metric factors, float64 host — computed lazily
+        on the first operator build (6 f64/quad-point = 12.5 GB host at
+        134M DOF, the dominant setup allocation)."""
         return pre.cell_geometry_factors(self.mesh)[1]
 
     # ---- device operators (built on first use) ---------------------------
     @functools.cached_property
     def mm_op(self) -> mm.MMStiffness:
-        """Unit-coefficient matmul-form stiffness operator (fast path)."""
+        """Unit-coefficient structured stiffness operator (box and mapped
+        meshes)."""
         return mm.build_stiffness(self.mesh.nc, self.P, self._D_host,
                                   self._G_host, self.dtype)
-
-    def pallas_op(self, coeff=None, force_parts: int = 0,
-                  corner: bool = False):
-        """Fused-kernel stiffness operator (fustpu.ops.pallas_stiffness);
-        per-cell coefficients are folded into G at build time.  Meshes
-        whose y-z extent exceeds the single-slab VMEM budget come back as
-        a y-partitioned operator (shared planes overlap-added in XLA).
-        `corner` selects the corner-streamed kernel: ~20x less geometry
-        memory (37 floats/cell vs 6/quad-point) at ~1.6x the apply cost —
-        the memory-capacity mode for very large single-chip meshes."""
-        from fustpu.ops import pallas_stiffness as ps
-
-        return ps.build_auto(
-            self.mesh.nc, self.P, self._D_host,
-            None if corner else self._G_host, self.dtype,
-            coeff=coeff, force_parts=force_parts,
-            corners=self.mesh.cell_corners_flat if corner else None)
-
-    def pallas_fits(self) -> bool:
-        """Whether the fused kernel applies to this mesh, possibly as a
-        y-partitioned operator (pallas_stiffness.pick_y_parts)."""
-        from fustpu.ops import pallas_stiffness as ps
-
-        n = self.P + 1
-        _, ncy, ncz = self.mesh.nc
-        gz = ncz * self.P + 1
-        return ps.pick_y_parts(n, ncy, ncz, gz) is not None
 
     @functools.cached_property
     def extruded_op(self):
         """Factorized stiffness operator for prismatic-topology meshes
         (fustpu.mesh.extruded.ExtrudedHexMesh): row gather/scatter with
-        the structured z axis on the lanes — the portable XLA path for
-        imported piston-class meshes (~the speed class of the structured
-        paths, vs ~10x off for the per-element indexed path).  On TPU the
-        fused kernel (extruded_pallas_op) replaces its einsum middle."""
+        the structured z axis contiguous — the path for imported
+        piston-class meshes."""
         from fustpu.ops import operators as ops
 
         return ops.build_extruded_stiffness(self.mesh, self._G_host,
                                             self._D_host, self.dtype)
 
-    def extruded_pallas_op(self, coeff=None, corner: bool = False):
-        """Fused-kernel stiffness operator for extruded meshes
-        (fustpu.ops.pallas_extruded): one VMEM pass between the XLA row
-        gather and scatter — the TPU production path for imported
-        meshes.  `corner` selects the memory-capacity mode: the geometry
-        streams as 37 trilinear monomial coefficients per CELL and
-        adj(J)/det is evaluated in-kernel — ~20x less geometry HBM, the
-        mode for >10^8-DOF imported meshes (never touches _G_host)."""
-        from fustpu.ops import pallas_extruded as pex
-
-        if corner:
-            return pex.build_extruded_corner(self.mesh, self._D_host,
-                                             self.dtype, coeff=coeff)
-        return pex.build_extruded(self.mesh, self._G_host, self._D_host,
-                                  self.dtype, coeff=coeff)
-
-    def extruded_pallas_pair_op(self, c1, c2, corner: bool = False):
-        from fustpu.ops import pallas_extruded as pex
-
-        if corner:
-            return pex.build_extruded_corner(self.mesh, self._D_host,
-                                             self.dtype, c1_cells=c1,
-                                             c2_cells=c2)
-        return pex.build_extruded_pair(self.mesh, self._G_host,
-                                       self._D_host, self.dtype, c1, c2)
-
-    def ext_pallas_fits(self, pair: bool = False,
-                        corner: bool = False) -> bool:
-        from fustpu.ops import pallas_extruded as pex
-
-        mesh = self.mesh
-        g = 1 if mesh.geom_nodes is None else 2
-        return pex.ext_pallas_fits(self.P + 1, mesh.nstacks, mesh.nz,
-                                   mesh.gz, pair=pair, corner=corner,
-                                   geom_deg=g)
-
-    @functools.cached_property
-    def indexed_engine(self):
-        """Windowed one-hot gather/scatter plan for the indexed path
-        (fustpu.ops.pallas_gather) — one plan serves both directions
-        (built on dofmap.ravel()).  None when the mesh windows too badly
-        (WR at cap with heavy spill — the XLA spill path would eat the
-        engine's win); callers pass engine=None and get the plain path."""
-        from fustpu.ops import pallas_gather as pg
-
-        plan = pg.build_plan(self.mesh.dofmap.ravel(), self.mesh.ndofs)
-        n_spill = int(plan.spos.shape[0])
-        if not pg.plan_covers(n_spill, self.mesh.dofmap.size):
-            import warnings
-
-            warnings.warn(
-                f"gather-engine windows cover this mesh poorly "
-                f"({n_spill}/{self.mesh.dofmap.size} spill) — using the "
-                f"plain indexed path", stacklevel=2)
-            return None
-        return plan
-
-    @functools.cached_property
-    def fused_engine(self):
-        """Single-kernel gather+contract+scatter engine operator
-        (fustpu.ops.pallas_gather.FusedEngine) — the fused form of the
-        indexed_engine path.  None when the mesh is ineligible (P > 4,
-        spilling cell-row plan, VMEM cap, FUSTPU_ENGINE_FUSED=0);
-        callers fall back to the 3-kernel engine."""
-        from fustpu.ops import pallas_gather as pg
-
-        return pg.build_fused_engine(
-            np.asarray(self.mesh.dofmap), self.mesh.ndofs,
-            self._G_host, self._D_host, self.dtype)
-
     @functools.cached_property
     def indexed_op(self) -> tuple:
         """(G, dofmap, D) device arrays for the explicit-dofmap stiffness
         (fustpu.ops.operators.stiffness_apply_indexed) — the path for
-        unstructured meshes.  (A windowed slice-gather formulation was
-        measured 50x SLOWER than the element-wise gather on this TPU
-        stack — XLA serializes windowed scatters; see BENCH_NOTES.)"""
+        non-prismatic unstructured meshes."""
         return (jnp.asarray(
                     np.ascontiguousarray(np.moveaxis(self._G_host, 2, 0)),
                     self.dtype),
@@ -269,51 +168,31 @@ class Discretization:
             np.asarray(flat).reshape(self.mesh.grid_shape), self.dtype)
 
 
-def on_tpu() -> bool:
-    try:
-        import jax
+# Stiffness path per mesh class.  Every path is plain jax.numpy/lax at
+# Precision.HIGHEST (on Hopper: plain f32, no TF32).
+STIFFNESS_IMPLS = ("auto", "mm", "extruded", "indexed")
 
-        dev = jax.devices()[0]
-        return "tpu" in dev.platform.lower() or "tpu" in str(dev).lower()
-    except Exception:
-        return False
+
+def stiffness_path(mesh) -> str:
+    """'mm' for box and mapped meshes, 'extruded' for prismatic imports,
+    'indexed' for every other (non-prismatic) unstructured mesh."""
+    from fustpu.mesh.extruded import ExtrudedHexMesh
+
+    if hasattr(mesh, "nc"):
+        return "mm"
+    return "extruded" if isinstance(mesh, ExtrudedHexMesh) else "indexed"
 
 
 def resolve_stiffness_impl(impl: str, disc: Discretization) -> str:
-    """'auto' picks the fused Pallas kernel on TPU backends when the slab
-    fits VMEM, else the XLA matmul formulation.  Unstructured meshes with
-    prismatic topology use the factorized extruded path — fused kernel
-    ('extruded_pallas') on TPU when the stack batch fits VMEM, XLA
-    einsums ('extruded') otherwise; non-prismatic meshes use the
-    explicit-dofmap indexed path."""
-    if not disc.structured:
-        from fustpu.mesh.extruded import ExtrudedHexMesh
-
-        if isinstance(disc.mesh, ExtrudedHexMesh) and impl not in (
-                "indexed", "indexed_engine"):
-            if impl in ("extruded", "extruded_pallas"):
-                return impl
-            if impl in ("pallas_corner", "extruded_pallas_corner"):
-                # capacity mode: per-cell monomial geometry stream
-                # (37 channels trilinear, 163 for curved hex27 prisms)
-                if disc.ext_pallas_fits(corner=True):
-                    return "extruded_pallas_corner"
-                import warnings
-
-                warnings.warn(
-                    "corner capacity mode requested but no VMEM-"
-                    "feasible stack batch exists for this mesh — "
-                    "falling back to the G-stream paths, which "
-                    "materialise the FULL geometry stream (at capacity "
-                    "scale this can exhaust host/device memory)",
-                    stacklevel=2)
-            return ("extruded_pallas"
-                    if on_tpu() and disc.ext_pallas_fits() else "extruded")
-        # general (non-prismatic) unstructured: the windowed one-hot
-        # gather/scatter engine on TPU, plain XLA index ops otherwise
-        if impl == "indexed_engine" or (impl != "indexed" and on_tpu()):
-            return "indexed_engine"
-        return "indexed"
-    if impl != "auto":
-        return impl
-    return "pallas" if (on_tpu() and disc.pallas_fits()) else "mm"
+    """The stiffness path of `disc`'s mesh class (stiffness_path).
+    'auto' and the mesh class's own path name resolve to it; any other
+    string raises ValueError naming the accepted ones."""
+    path = stiffness_path(disc.mesh)
+    if impl not in STIFFNESS_IMPLS:
+        raise ValueError(f"stiffness_impl={impl!r}: accepted values are "
+                         f"{', '.join(STIFFNESS_IMPLS)}")
+    if impl not in ("auto", path):
+        raise ValueError(f"stiffness_impl={impl!r} does not apply to a "
+                         f"{type(disc.mesh).__name__}: accepted values are "
+                         f"'auto' and {path!r}")
+    return path

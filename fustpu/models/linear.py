@@ -10,7 +10,7 @@ Weak form (reference cpp forms, /root/reference/cpp/demo_linear_box/forms.py
               - (v_n/(rho c)) v ds(Gamma_abs)
     du/dt = v ;  dv/dt = b / m
 
-TPU realisation per RK stage: ONE matmul-form stiffness apply + three
+Per RK stage: ONE stiffness apply + three
 elementwise multiplies (the mass LHS, the source vector, and the absorbing
 facet term are all precomputed diagonals — see
 fustpu.models.discretization).  The reference launches a stiffness kernel,
@@ -45,22 +45,17 @@ class LinearWaveModel(WaveModelBase):
         source_delays=None,
         source_apodization=None,
         stiffness_impl: str = "auto",
-        pallas_precision=None,
     ):
         """`source_delays`: optional per-node delay profile tau(x) for a
         phased (focused) aperture — a callable(points (N,3)) -> tau (N,) or
         an (nf, n^2) array.  `source_apodization`: optional amplitude
         profile, same convention.  See fustpu.models.sources.
-        `stiffness_impl`: 'auto' | 'mm' | 'pallas' | 'pallas_corner'
-        (corner = fused kernel in 20x-less-geometry-memory mode).
-        `pallas_precision`: None = the kernel's validated default (bf16x3
-        for f32 fields, full precision for f64); pass
-        jax.lax.Precision.HIGHEST to force the full-f32 kernel."""
+        `stiffness_impl`: 'auto' | 'mm' | 'extruded' | 'indexed' — see
+        fustpu.models.discretization.resolve_stiffness_impl."""
         self.mesh = mesh
         self.material = material
         self.source = source
         self.dtype = dtype
-        self._pallas_precision = pallas_precision
         disc = Discretization(mesh, dtype)
         self.disc = disc
 
@@ -68,76 +63,36 @@ class LinearWaveModel(WaveModelBase):
         c, rho, _, _ = material.cell_fields(cshape)
         self.uniform = material.is_uniform
         # steady diagonal LHS: mass diag with coeff 1/(rho c^2), f64 host
-        # (all diagonal vectors are stored FLAT: elementwise ops on flat
-        # vectors avoid the ~2x lane-padding of odd 3D grid dims)
+        # (all diagonal vectors are stored FLAT, like the solver state)
         to_flat = lambda a: disc.to_grid(a).reshape(-1)
         self.m = to_flat(disc.mass_diag_host(1.0 / (rho * c * c)))
-        # stiffness coefficient -1/rho: a scalar for uniform media (fused
-        # into the apply), an expanded per-cell field otherwise
-        impl = resolve_stiffness_impl(stiffness_impl, disc)
-        # 'pallas_corner' = fused kernel in memory-capacity mode
-        self._corner = impl == "pallas_corner"
-        self.impl = "pallas" if self._corner else impl
-        # extruded capacity mode: 37-floats/cell geometry stream
-        self._ext_corner = impl == "extruded_pallas_corner"
-        if self._ext_corner:
-            self.impl = "extruded_pallas"
+        # stiffness coefficient -1/rho: a scalar for uniform media, a
+        # per-cell field otherwise
+        self.impl = resolve_stiffness_impl(stiffness_impl, disc)
         self.c2_scalar = self.c2_e = self.c2_cells = self.c2_x = None
-        if self.impl == "extruded_pallas":
-            # prismatic imported mesh, fused kernel (TPU production path;
-            # interpret mode drives it on CPU backends in tests)
-            from fustpu.models.discretization import on_tpu
-
-            self._ext_interpret = not on_tpu()
-            if self.uniform:
-                self.c2_scalar = dtype(-1.0 / float(rho.flat[0]))
-                self._stiff_op = disc.extruded_pallas_op(
-                    corner=self._ext_corner)
-            else:
-                self._stiff_op = disc.extruded_pallas_op(
-                    coeff=np.broadcast_to(-1.0 / rho, (mesh.num_cells,)),
-                    corner=self._ext_corner)
-        elif self.impl == "extruded":
+        if self.uniform:
+            self.c2_scalar = dtype(-1.0 / float(rho.flat[0]))
+        if self.impl == "extruded":
             # prismatic imported mesh: factorized row-gather path
             from fustpu.ops import operators as ops
 
             self._stiff_op = disc.extruded_op
-            if self.uniform:
-                self.c2_scalar = dtype(-1.0 / float(rho.flat[0]))
-            else:
+            if not self.uniform:
                 self.c2_x = ops.expand_coeff_extruded(
                     mesh, np.broadcast_to(-1.0 / rho,
                                           (mesh.num_cells,)), dtype)
-        elif self.impl in ("indexed", "indexed_engine"):
-            # unstructured: explicit dofmap, per-cell coefficient array;
-            # 'indexed_engine' routes gather/scatter through the windowed
-            # one-hot MXU engine (fustpu.ops.pallas_gather)
+        elif self.impl == "indexed":
+            # unstructured: explicit dofmap, per-cell coefficient array
             self.c2_cells = jnp.asarray((-1.0 / rho).reshape(-1), dtype)
-            self._idx_engine = (disc.indexed_engine
-                                if self.impl == "indexed_engine" else None)
-            # fully-fused single-kernel form when the mesh is eligible;
-            # it supersedes the 3-kernel tensors — don't hold the
-            # (G, dofmap, D) device copies (~50 B/dof) when it's active
-            self._idx_fused = (disc.fused_engine
-                               if self._idx_engine is not None else None)
-            self._stiff_op = (disc.indexed_op
-                              if self._idx_fused is None else None)
-            from fustpu.models.discretization import on_tpu
-
-            self._engine_interpret = (self.impl == "indexed_engine"
-                                      and not on_tpu())
-        elif self.uniform:
-            self.c2_scalar = dtype(-1.0 / float(rho.flat[0]))
-            self._stiff_op = (disc.pallas_op(corner=self._corner)
-                              if self.impl == "pallas" else disc.mm_op)
+            self._stiff_op = disc.indexed_op
         else:
-            # heterogeneous: expanded coefficient field (also consumed by
-            # the sharded wrapper, which runs the mm path per device)
-            self.c2_e = jnp.asarray(
-                mm.expand_cell_field(-1.0 / rho, mesh.degree + 1), dtype)
-            self._stiff_op = (
-                disc.pallas_op(coeff=-1.0 / rho, corner=self._corner)
-                if self.impl == "pallas" else disc.mm_op)
+            self._stiff_op = disc.mm_op
+            if not self.uniform:
+                # heterogeneous: expanded coefficient field (also consumed
+                # by the sharded wrapper)
+                self.c2_e = jnp.asarray(
+                    mm.expand_cell_field(-1.0 / rho, mesh.degree + 1),
+                    dtype)
 
         # source boundary: the g(t) facet term reduces to precomputed
         # diagonal vector(s): one for a plain aperture, a cos/sin pair for a
@@ -190,8 +145,6 @@ class LinearWaveModel(WaveModelBase):
             p["s_sin"] = self.s_sin
         if self.fvec_abs is not None:
             p["fvec"] = self.fvec_abs
-        if getattr(self, "_idx_fused", None) is not None:
-            p["fused"] = self._idx_fused
         return p
 
     def _rhs(self, params, t, u, v):
@@ -208,15 +161,6 @@ class LinearWaveModel(WaveModelBase):
         return vec.pointwise_divide(b, params["m"])  # the diagonal solve
 
     def _apply_stiffness(self, params, u_flat):
-        if self.impl == "extruded_pallas":
-            from fustpu.ops import pallas_extruded as pex
-
-            kw = ({} if self._pallas_precision is None
-                  else {"precision": self._pallas_precision})
-            b = pex.stiffness_apply_extruded_pallas(
-                u_flat, params["stiff"], self.mesh.ndofs,
-                interpret=self._ext_interpret, **kw)
-            return self.c2_scalar * b if self.uniform else b
         if self.impl == "extruded":
             from fustpu.ops import operators as ops
 
@@ -224,32 +168,16 @@ class LinearWaveModel(WaveModelBase):
                 u_flat, params["stiff"], self.mesh.ndofs,
                 coeff_e=params.get("c2_x"))
             return self.c2_scalar * b if self.uniform else b
-        if self.impl in ("indexed", "indexed_engine"):
+        if self.impl == "indexed":
             from fustpu.ops import operators as ops
 
-            if "fused" in params:
-                from fustpu.ops import pallas_gather as pg
-
-                return pg.fused_apply(
-                    u_flat, params["c2_c"], params["fused"],
-                    self.mesh.ndofs, interpret=self._engine_interpret)
             G, dofmap, D = params["stiff"]
             return ops.stiffness_apply_indexed(
-                u_flat, G, params["c2_c"], dofmap, D, self.mesh.ndofs,
-                engine=self._idx_engine,
-                engine_interpret=self._engine_interpret)
+                u_flat, G, params["c2_c"], dofmap, D, self.mesh.ndofs)
         u = u_flat.reshape(self.mesh.grid_shape)
-        if self.impl == "pallas":
-            from fustpu.ops import pallas_stiffness as ps
-
-            kw = ({} if self._pallas_precision is None
-                  else {"precision": self._pallas_precision})
-            b = ps.stiffness_apply_pallas(params["stiff"], u, **kw)
-            b = self.c2_scalar * b if self.uniform else b
-        elif self.uniform:
+        if self.uniform:
             b = self.c2_scalar * mm.stiffness_apply_mm(params["stiff"], u)
         else:
             b = mm.stiffness_apply_mm(params["stiff"], u,
                                       coeff_e=params["c2_e"])
         return b.reshape(-1)
-

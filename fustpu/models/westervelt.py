@@ -12,9 +12,9 @@ Coefficient recipes (cuda/demo_nonlinear_bowl.py:357-374):
             - (v_n/(rho c)) v ds(abs)
     dv/dt = b / m
 
-TPU realisation per RK stage (uniform media): ONE matmul-form stiffness
-apply — the two stiffness terms fuse into A(c3 u + c4 v) since the operator
-is linear and the coefficients are scalars — plus elementwise multiplies
+Per RK stage (uniform media): ONE stiffness apply — the two stiffness
+terms fuse into A(c3 u + c4 v) since the operator is linear and the
+coefficients are scalars — plus elementwise multiplies
 for every mass-type term (all globally diagonal under GLL collocation: the
 unsteady LHS update, the v^2 term, both source vectors, and the absorbing
 term).  The reference instead launches 2 stiffness + 4 mass kernels and 5
@@ -48,17 +48,16 @@ class WesterveltModel(WaveModelBase):
         source_delays=None,
         source_apodization=None,
         stiffness_impl: str = "auto",
-        pallas_precision=None,
     ):
         """`source_delays` / `source_apodization`: optional per-node phased-
         aperture profiles (callable(points)->array or (nf, n^2) arrays) —
         the flat phased-array equivalent of the reference's curved H131
-        bowl mesh (see fustpu.models.sources)."""
+        bowl mesh (see fustpu.models.sources).  `stiffness_impl`: as in
+        LinearWaveModel."""
         self.mesh = mesh
         self.material = material
         self.source = source
         self.dtype = dtype
-        self._pallas_precision = pallas_precision
         disc = Discretization(mesh, dtype)
         self.disc = disc
 
@@ -72,52 +71,15 @@ class WesterveltModel(WaveModelBase):
 
         # cell coefficients (cuda/demo_nonlinear_bowl.py:357-362)
         nl = 2.0 * beta / (rho * rho * c**4)
-        impl = resolve_stiffness_impl(stiffness_impl, disc)
-        # 'pallas_corner' = fused kernel in memory-capacity mode
-        self._corner = impl == "pallas_corner"
-        self.impl = "pallas" if self._corner else impl
-        # extruded capacity mode: 37-floats/cell geometry stream
-        self._ext_corner = impl == "extruded_pallas_corner"
-        if self._ext_corner:
-            self.impl = "extruded_pallas"
+        self.impl = resolve_stiffness_impl(stiffness_impl, disc)
         self.c3_scalar = self.c4_scalar = None
         self.c3_e = self.c4_e = self.c3_cells = self.c4_cells = None
         self.c3_x = self.c4_x = None
-        if self.uniform:      # the one-apply fold coefficients, any impl
+        if self.uniform:      # the one-apply fold coefficients, any path
             self.c3_scalar = dtype(-1.0 / float(rho.flat[0]))
             self.c4_scalar = dtype(-float(delta.flat[0])
                                    / float((rho * c * c).flat[0]))
-        if (self.impl == "extruded_pallas" and not self.uniform
-                and not disc.ext_pallas_fits(pair=True,
-                                             corner=self._ext_corner)):
-            # the pair kernel's VMEM budget (doubled field IO + the ce
-            # block) is tighter than the single kernel's — fall back to
-            # the XLA pair path rather than fail at Mosaic compile
-            if self._ext_corner:
-                import warnings
-
-                warnings.warn(
-                    "heterogeneous corner capacity mode: the PAIR "
-                    "footprint exceeds the VMEM budget — falling back "
-                    "to the XLA extruded pair, which materialises the "
-                    "full G stream (capacity-defeating at >10^8 DOF)",
-                    stacklevel=2)
-            self.impl = "extruded"
-            self._ext_corner = False
-        if self.impl == "extruded_pallas":
-            from fustpu.models.discretization import on_tpu
-
-            self._ext_interpret = not on_tpu()
-            if self.uniform:
-                self._stiff_op = disc.extruded_pallas_op(
-                    corner=self._ext_corner)
-            else:
-                nc_ = (mesh.num_cells,)
-                self._stiff_op = disc.extruded_pallas_pair_op(
-                    np.broadcast_to(-1.0 / rho, nc_),
-                    np.broadcast_to(-delta / (rho * c * c), nc_),
-                    corner=self._ext_corner)
-        elif self.impl == "extruded":
+        if self.impl == "extruded":
             from fustpu.ops import operators as ops
 
             self._stiff_op = disc.extruded_op
@@ -128,60 +90,23 @@ class WesterveltModel(WaveModelBase):
                 self.c4_x = ops.expand_coeff_extruded(
                     mesh, np.broadcast_to(-delta / (rho * c * c), nc_),
                     dtype)
-        elif self.impl in ("indexed", "indexed_engine"):
+        elif self.impl == "indexed":
             self.c3_cells = jnp.asarray((-1.0 / rho).reshape(-1), dtype)
             self.c4_cells = jnp.asarray(
                 (-delta / (rho * c * c)).reshape(-1), dtype)
-            self._idx_engine = (disc.indexed_engine
-                                if self.impl == "indexed_engine" else None)
-            # fully-fused single-kernel form when the mesh is eligible;
-            # it supersedes the 3-kernel tensors — don't hold the
-            # (G, dofmap, D) device copies (~50 B/dof) when it's active
-            self._idx_fused = (disc.fused_engine
-                               if self._idx_engine is not None else None)
-            self._stiff_op = (disc.indexed_op
-                              if self._idx_fused is None else None)
-            from fustpu.models.discretization import on_tpu
-
-            self._engine_interpret = (self.impl == "indexed_engine"
-                                      and not on_tpu())
-        elif self.uniform:
-            self._stiff_op = (disc.pallas_op(corner=self._corner)
-                              if self.impl == "pallas" else disc.mm_op)
+            self._stiff_op = disc.indexed_op
         else:
-            n = mesh.degree + 1
-            self.c3_e = jnp.asarray(mm.expand_cell_field(-1.0 / rho, n),
-                                    dtype)
-            self.c4_e = jnp.asarray(
-                mm.expand_cell_field(-delta / (rho * c * c), n), dtype)
-            self._pair = False
-            if self.impl == "pallas":
-                from fustpu.ops import pallas_stiffness as ps
-
-                nn = mesh.degree + 1
-                single_slab = (not self._corner and ps.pallas_fits(
-                    nn, mesh.nc[1], mesh.nc[2], mesh.nc[2] * mesh.degree
-                    + 1, pair=True))
-                if single_slab:
-                    # ONE fused pass for both stiffness terms, one
-                    # unit-coefficient G (instead of two folded copies)
-                    self._pair = True
-                    self._stiff_op = ps.build_pair(
-                        mesh.nc, mesh.degree, disc._D_host, disc._G_host,
-                        dtype, -1.0 / rho, -delta / (rho * c * c))
-                else:
-                    # y-partitioned / corner: two folded operators
-                    self._stiff_op = (
-                        disc.pallas_op(coeff=-1.0 / rho,
-                                       corner=self._corner),
-                        disc.pallas_op(coeff=-delta / (rho * c * c),
-                                       corner=self._corner))
-            else:
-                self._stiff_op = disc.mm_op
+            self._stiff_op = disc.mm_op
+            if not self.uniform:
+                n = mesh.degree + 1
+                self.c3_e = jnp.asarray(mm.expand_cell_field(-1.0 / rho, n),
+                                        dtype)
+                self.c4_e = jnp.asarray(
+                    mm.expand_cell_field(-delta / (rho * c * c), n), dtype)
 
         # unsteady mass diagonal: mass(u; -nl) = u * mvec2 (and the v^2 RHS
         # term uses +nl, i.e. exactly -mvec2).  All diagonal vectors are
-        # stored FLAT (lane-padding avoidance; see LinearWaveModel).
+        # stored FLAT, like the solver state.
         to_flat = lambda a: disc.to_grid(a).reshape(-1)
         self.mvec2 = to_flat(disc.mass_diag_host(-nl))
 
@@ -248,8 +173,6 @@ class WesterveltModel(WaveModelBase):
             p["s1_sin"], p["s2_sin"] = self.s1_sin, self.s2_sin
         if self.fvec_abs is not None:
             p["fvec"] = self.fvec_abs
-        if getattr(self, "_idx_fused", None) is not None:
-            p["fused"] = self._idx_fused
         return p
 
     def _rhs(self, params, t, u, v):
@@ -272,85 +195,33 @@ class WesterveltModel(WaveModelBase):
         return vec.pointwise_divide(b, m)     # the diagonal solve
 
     def _apply_stiffness(self, params, u_flat, v_flat):
-        if self.impl == "extruded_pallas":
-            from fustpu.ops import pallas_extruded as pex
-
-            kw = ({} if self._pallas_precision is None
-                  else {"precision": self._pallas_precision})
-            nd = self.mesh.ndofs
-            if self.uniform:
-                x = self.c3_scalar * u_flat + self.c4_scalar * v_flat
-                return pex.stiffness_apply_extruded_pallas(
-                    x, params["stiff"], nd,
-                    interpret=self._ext_interpret, **kw)
-            return pex.stiffness_apply_extruded_pallas_pair(
-                u_flat, v_flat, params["stiff"], nd,
-                interpret=self._ext_interpret, **kw)
+        nd = self.mesh.ndofs
+        if self.uniform:
+            # both stiffness terms in ONE apply (linearity, scalar coeffs)
+            x = self.c3_scalar * u_flat + self.c4_scalar * v_flat
         if self.impl == "extruded":
             from fustpu.ops import operators as ops
 
-            nd = self.mesh.ndofs
             if self.uniform:
-                # both stiffness terms in ONE apply (linearity)
-                x = self.c3_scalar * u_flat + self.c4_scalar * v_flat
                 return ops.stiffness_apply_extruded(x, params["stiff"], nd)
             # one factorized pass for both terms (coefficients commute
             # with the in-cell contractions in the expanded layout)
             return ops.stiffness_apply_extruded_pair(
                 u_flat, v_flat, params["stiff"], nd,
                 params["c3_x"], params["c4_x"])
-        if self.impl in ("indexed", "indexed_engine"):
+        if self.impl == "indexed":
             from fustpu.ops import operators as ops
 
-            nd = self.mesh.ndofs
-            if "fused" in params:
-                from fustpu.ops import pallas_gather as pg
-
-                if self.uniform:
-                    x = self.c3_scalar * u_flat + self.c4_scalar * v_flat
-                    return pg.fused_apply(
-                        x, None, params["fused"], nd,
-                        interpret=self._engine_interpret)
-                return pg.fused_apply_pair(
-                    u_flat, params["c3_c"], v_flat, params["c4_c"],
-                    params["fused"], nd,
-                    interpret=self._engine_interpret)
             G, dofmap, D = params["stiff"]
-            kw = dict(engine=self._idx_engine,
-                      engine_interpret=self._engine_interpret)
             if self.uniform:
-                # both stiffness terms in ONE apply (linearity): halves
-                # the gather/contract/scatter work per stage
-                x = self.c3_scalar * u_flat + self.c4_scalar * v_flat
-                return ops.stiffness_apply_indexed(
-                    x, G, None, dofmap, D, nd, **kw)
+                return ops.stiffness_apply_indexed(x, G, None, dofmap, D, nd)
             # heterogeneous: one pass sharing a single scatter
             return ops.stiffness_apply_indexed_pair(
                 u_flat, params["c3_c"], v_flat, params["c4_c"],
-                G, dofmap, D, nd, **kw)
+                G, dofmap, D, nd)
         g = self.mesh.grid_shape
-        if self.impl == "pallas":
-            from fustpu.ops import pallas_stiffness as ps
-
-            kw = ({} if self._pallas_precision is None
-                  else {"precision": self._pallas_precision})
-            if self.uniform:
-                x = (self.c3_scalar * u_flat
-                     + self.c4_scalar * v_flat).reshape(g)
-                b = ps.stiffness_apply_pallas(params["stiff"], x, **kw)
-            elif getattr(self, "_pair", False):
-                b = ps.stiffness_apply_pallas_pair(
-                    params["stiff"], u_flat.reshape(g),
-                    v_flat.reshape(g), **kw)
-            else:
-                op3, op4 = params["stiff"]
-                b = (ps.stiffness_apply_pallas(op3, u_flat.reshape(g), **kw)
-                     + ps.stiffness_apply_pallas(op4, v_flat.reshape(g),
-                                                 **kw))
-        elif self.uniform:
-            # both stiffness terms in ONE apply (linearity, scalar coeffs)
-            x = (self.c3_scalar * u_flat + self.c4_scalar * v_flat).reshape(g)
-            b = mm.stiffness_apply_mm(params["stiff"], x)
+        if self.uniform:
+            b = mm.stiffness_apply_mm(params["stiff"], x.reshape(g))
         else:
             # one contraction pass for both terms (coefficients commute
             # with the in-cell contractions in the expanded layout)
@@ -358,4 +229,3 @@ class WesterveltModel(WaveModelBase):
                 params["stiff"], u_flat.reshape(g), v_flat.reshape(g),
                 params["c3_e"], params["c4_e"])
         return b.reshape(-1)
-

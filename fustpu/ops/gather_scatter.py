@@ -1,8 +1,7 @@
 """Global-DOF <-> element-batch gather/scatter.
 
 The reference handles the scatter-add (direct stiffness summation) with
-``cuda.atomic.add`` per dof (/root/reference/cuda/operators.py:70,190).  TPUs
-have no atomics, and a generic XLA scatter-add serializes badly — but on a
+``cuda.atomic.add`` per dof (/root/reference/cuda/operators.py:70,190).  On a
 structured box with tensor-product numbering the scatter is *separable*:
 global node index along each axis is cx*P + i, so cells overlap only at the
 single shared plane per axis.  The whole 3D scatter-add therefore factors
@@ -97,68 +96,8 @@ def gather_dofs(x_flat: jax.Array, dofmap: jax.Array) -> jax.Array:
 
 def scatter_add_dofs(vals: jax.Array, dofmap: jax.Array,
                      ndofs: int) -> jax.Array:
-    """Deterministic scatter-add of (entities, local_dofs) into (ndofs,)."""
+    """Scatter-add of (entities, local_dofs) into (ndofs,).  XLA's GPU
+    scatter-add accumulates with atomics, so the order of the sums (and
+    the last bits of the result) can change from run to run."""
     return jnp.zeros((ndofs,), vals.dtype).at[dofmap.ravel()].add(
         vals.ravel(), mode="promise_in_bounds")
-
-
-# ---------------------------------------------------------------------------
-# Pull-based transpose scatter ("gather-sum"): the scatter-add direction
-# re-expressed as gathers.  XLA's generic scatter-add serializes on TPU
-# (~50% of the indexed apply, BENCH_NOTES r2); gathers vectorize.  At
-# setup we invert the dofmap: for every global dof, the list of flat
-# positions in the (entities*nd,) value array that accumulate into it.
-# Dofs are grouped into power-of-two multiplicity classes (interior dofs
-# have multiplicity 1, faces 2, edges ~4, vertices ~8+), each class a
-# dense (len, m) gather + row-sum; short rows point at a zero sentinel.
-# The reference handles the same direction with cuda.atomic.add
-# (/root/reference/cuda/operators.py:70,190).
-# ---------------------------------------------------------------------------
-
-from typing import NamedTuple
-
-
-class PullScatter(NamedTuple):
-    tables: tuple      # per-class (len_c, m_c) int32 flat-position tables
-    slots: jax.Array   # (ndofs,) int32: dof -> its slot in the class concat
-    npos: int          # entities*nd (sentinel index, static)
-
-
-def build_pull_scatter(dofmap, ndofs: int) -> PullScatter:
-    """Invert a (entities, nd) dofmap into pull tables (host, numpy)."""
-    import numpy as np
-
-    flat = np.asarray(dofmap, np.int64).ravel()
-    npos = flat.size
-    order = np.argsort(flat, kind="stable")
-    counts = np.bincount(flat, minlength=ndofs)
-    if counts.min() < 1:
-        raise ValueError("dofmap does not cover every dof")
-    starts = np.concatenate([[0], np.cumsum(counts)])
-    sorted_dofs = flat[order]
-    runpos = np.arange(npos) - np.repeat(starts[:-1], counts)
-    # power-of-two multiplicity classes actually present
-    cls_of = 1 << np.ceil(np.log2(counts)).astype(np.int64)
-    cls_sorted = cls_of[sorted_dofs]
-    tables, dof_order = [], []
-    for m in np.unique(cls_of):
-        dofs_m = np.nonzero(cls_of == m)[0]
-        rank_of = np.zeros(ndofs, np.int64)
-        rank_of[dofs_m] = np.arange(len(dofs_m))
-        tab = np.full((len(dofs_m), int(m)), npos, np.int64)
-        sel = cls_sorted == m
-        tab[rank_of[sorted_dofs[sel]], runpos[sel]] = order[sel]
-        tables.append(jnp.asarray(tab, jnp.int32))
-        dof_order.append(dofs_m)
-    slots = np.empty(ndofs, np.int64)
-    slots[np.concatenate(dof_order)] = np.arange(ndofs)
-    return PullScatter(tables=tuple(tables),
-                       slots=jnp.asarray(slots, jnp.int32), npos=npos)
-
-
-def pull_scatter_dofs(vals: jax.Array, ps: PullScatter) -> jax.Array:
-    """Gather-only equivalent of scatter_add_dofs(vals, dofmap, ndofs)."""
-    v = jnp.concatenate([vals.reshape(-1),
-                         jnp.zeros((1,), vals.dtype)])
-    parts = [v[t].sum(axis=1) for t in ps.tables]
-    return jnp.concatenate(parts)[ps.slots]

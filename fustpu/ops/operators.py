@@ -1,14 +1,13 @@
 """Matrix-free spectral operators: mass, sum-factorised stiffness, facet mass.
 
-TPU-native re-design of /root/reference/cuda/operators.py:
+Array-level re-design of /root/reference/cuda/operators.py:
 - the CUDA mass kernel (one thread per (entity, dof) + atomic add,
   operators.py:18-70) becomes a batched elementwise multiply + separable
-  overlap-add (structured path) or deterministic XLA scatter-add (indexed
-  path);
+  overlap-add (structured path) or an XLA scatter-add (indexed path);
 - the CUDA stiffness kernel (one block per cell, shared-memory contractions,
-  operators.py:73-192) becomes six batched tensor contractions (dot_general
-  on the MXU) over the whole cell batch at once, with the geometric transform
-  fused elementwise in between.
+  operators.py:73-192) becomes six batched tensor contractions over the
+  whole cell batch at once, with the geometric transform fused elementwise
+  in between.
 
 Both a structured fast path (node-grid layout, zero index arrays) and a
 generic indexed path (explicit dofmap) are provided; they agree to roundoff
@@ -29,8 +28,9 @@ from fustpu.ops.gather_scatter import (
     windows3d,
 )
 
-# All contractions accumulate in float32 (or float64 under x64) on the MXU;
-# bf16 passes are opt-in at the model level, never silently.
+# Every contraction runs at HIGHEST: full float32 (float64 under x64).  On
+# Hopper that keeps f32 dots off TF32, whose 10-bit mantissa would put
+# ~1e-3 relative error into the apply.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -107,9 +107,8 @@ def mass_apply_indexed(x_flat: jax.Array, detJ: jax.Array, coeff: jax.Array,
 # ---------------------------------------------------------------------------
 # Extruded path: prismatic-topology meshes (fustpu.mesh.extruded).  The
 # dofmap factorizes as dof = row2d*gz + zidx, so the gather/scatter are
-# vectorized ROW operations with the structured z axis on the lanes — this
-# is what makes imported (piston-class) meshes run at production speed on
-# TPU; the per-element indexed path below stays as the general fallback.
+# vectorized ROW operations with the structured z axis contiguous; the
+# per-element indexed path below covers every other unstructured mesh.
 # ---------------------------------------------------------------------------
 
 from typing import NamedTuple
@@ -156,71 +155,34 @@ def expand_coeff_extruded(mesh, coeff, dtype) -> jax.Array:
     return jnp.asarray(np.repeat(c, n, axis=1)[:, None, None, :], dtype)
 
 
-def _mk_einsum(precision, dtype):
-    """Contraction for the extruded apply.  "bf16x3": hi/lo bf16
-    decomposition dropping only the lo*lo term (~2^-16), skipping the lo
-    pass for exact-in-bf16 operands (0/1 windows) — the same validated
-    scheme as the fused Pallas kernel's matmuls, here at the XLA level
-    (full-f32 einsums cost ~18x on the bf16 MXU)."""
-    if precision != "bf16x3":
-        return lambda sub, A, x, a_exact=False: jnp.einsum(
-            sub, A, x, precision=precision)
-    bf = jnp.bfloat16
-
-    def contract(sub, A, x, a_exact=False):
-        Ah = A.astype(bf)
-        xh = x.astype(bf)
-        xl = (x - xh.astype(dtype)).astype(bf)
-        d = lambda p, q: jnp.einsum(sub, p, q,
-                                    preferred_element_type=dtype)
-        out = d(Ah, xh) + d(Ah, xl)
-        if not a_exact:
-            Al = (A - Ah.astype(dtype)).astype(bf)
-            out = out + d(Al, xh)
-        return out
-
-    return contract
+def _einsum(sub, A, x):
+    return jnp.einsum(sub, A, x, precision=_PRECISION)
 
 
 def stiffness_apply_extruded(x_flat: jax.Array, op: ExtrudedStiffness,
                              ndofs: int,
-                             coeff_e: jax.Array | None = None,
-                             precision="auto") -> jax.Array:
+                             coeff_e: jax.Array | None = None) -> jax.Array:
     """y_flat = A_stiff(x_flat) on a factorized (n2d, gz) DOF layout.
     `coeff_e`: optional (ns, 1, 1, ez) per-cell coefficient
-    (expand_coeff_extruded).  `precision`: "auto" = full precision.
-    Both cheaper schemes are measured NET LOSSES at production size and
-    stay opt-in: "bf16x3" (all contractions decomposed; bowl 26->32
-    ms/step) and "mixed" (decompose only the O(ez)-deep z contractions;
-    bowl 26->28) — the apply is HBM-traffic-bound, so the hi/lo split
-    passes cost more than the MXU emulation they avoid (BENCH_NOTES
-    r3)."""
-    if precision == "auto":
-        precision = _PRECISION
-    if precision == "mixed":
-        mmz = _mk_einsum("bf16x3", x_flat.dtype)
-        mmd = _mk_einsum(_PRECISION, x_flat.dtype)
-    else:
-        mmz = mmd = _mk_einsum(precision, x_flat.dtype)
+    (expand_coeff_extruded)."""
     gz = op.Wz.shape[1]
     _, ns, n, _, ez = op.G6.shape
     x2 = x_flat.reshape(-1, gz)
     g = x2[op.rows]                                   # (ns*n^2, gz) rows
-    u = mmz("ez,qz->qe", op.Wz, g, a_exact=True).reshape(ns, n, n, ez)
-    wx = mmd("ai,qije->qaje", op.D, u)
-    wy = mmd("bj,qije->qibe", op.D, u)
-    wz = mmz("fe,qije->qijf", op.Dz, u)
+    u = _einsum("ez,qz->qe", op.Wz, g).reshape(ns, n, n, ez)
+    wx = _einsum("ai,qije->qaje", op.D, u)
+    wy = _einsum("bj,qije->qibe", op.D, u)
+    wz = _einsum("fe,qije->qijf", op.Dz, u)
     G = op.G6
     f0 = G[0] * wx + G[1] * wy + G[2] * wz
     f1 = G[1] * wx + G[3] * wy + G[4] * wz
     f2 = G[2] * wx + G[4] * wy + G[5] * wz
     if coeff_e is not None:
         f0, f1, f2 = f0 * coeff_e, f1 * coeff_e, f2 * coeff_e
-    r = mmd("ai,qaje->qije", op.D, f0)
-    r = r + mmd("bj,qibe->qije", op.D, f1)
-    r = r + mmz("fe,qijf->qije", op.Dz, f2)
-    vals = mmz("ez,qije->qijz", op.Wz, r,
-               a_exact=True).reshape(ns * n * n, gz)
+    r = _einsum("ai,qaje->qije", op.D, f0)
+    r = r + _einsum("bj,qibe->qije", op.D, f1)
+    r = r + _einsum("fe,qijf->qije", op.Dz, f2)
+    vals = _einsum("ez,qije->qijz", op.Wz, r).reshape(ns * n * n, gz)
     y2 = jnp.zeros((ndofs // gz, gz), x_flat.dtype)
     y2 = y2.at[op.rows].add(vals, mode="promise_in_bounds")
     return y2.reshape(-1)
@@ -228,41 +190,32 @@ def stiffness_apply_extruded(x_flat: jax.Array, op: ExtrudedStiffness,
 
 def stiffness_apply_extruded_pair(x1: jax.Array, x2: jax.Array,
                                   op: ExtrudedStiffness, ndofs: int,
-                                  c1_e: jax.Array, c2_e: jax.Array,
-                                  precision="auto") -> jax.Array:
+                                  c1_e: jax.Array, c2_e: jax.Array
+                                  ) -> jax.Array:
     """y = A_c1(x1) + A_c2(x2) in one factorized pass: per-cell
     coefficients commute with the within-cell contractions once the
     fields are in the gathered/expanded layout, so the two fields
     combine right after the z-window (the heterogeneous Westervelt
-    stage; see stiffness_apply_mm_pair).  `precision` as in
-    stiffness_apply_extruded."""
-    if precision == "auto":
-        precision = _PRECISION
-    if precision == "mixed":
-        mmz = _mk_einsum("bf16x3", x1.dtype)
-        mmd = _mk_einsum(_PRECISION, x1.dtype)
-    else:
-        mmz = mmd = _mk_einsum(precision, x1.dtype)
+    stage; see stiffness_apply_mm_pair)."""
     gz = op.Wz.shape[1]
     _, ns, n, _, ez = op.G6.shape
     g1 = x1.reshape(-1, gz)[op.rows]
     g2 = x2.reshape(-1, gz)[op.rows]
-    u = (mmz("ez,qz->qe", op.Wz, g1, a_exact=True).reshape(ns, n, n, ez)
+    u = (_einsum("ez,qz->qe", op.Wz, g1).reshape(ns, n, n, ez)
          * c1_e
-         + mmz("ez,qz->qe", op.Wz, g2, a_exact=True).reshape(ns, n, n, ez)
+         + _einsum("ez,qz->qe", op.Wz, g2).reshape(ns, n, n, ez)
          * c2_e)
-    wx = mmd("ai,qije->qaje", op.D, u)
-    wy = mmd("bj,qije->qibe", op.D, u)
-    wz = mmz("fe,qije->qijf", op.Dz, u)
+    wx = _einsum("ai,qije->qaje", op.D, u)
+    wy = _einsum("bj,qije->qibe", op.D, u)
+    wz = _einsum("fe,qije->qijf", op.Dz, u)
     G = op.G6
     f0 = G[0] * wx + G[1] * wy + G[2] * wz
     f1 = G[1] * wx + G[3] * wy + G[4] * wz
     f2 = G[2] * wx + G[4] * wy + G[5] * wz
-    r = mmd("ai,qaje->qije", op.D, f0)
-    r = r + mmd("bj,qibe->qije", op.D, f1)
-    r = r + mmz("fe,qijf->qije", op.Dz, f2)
-    vals = mmz("ez,qije->qijz", op.Wz, r,
-               a_exact=True).reshape(ns * n * n, gz)
+    r = _einsum("ai,qaje->qije", op.D, f0)
+    r = r + _einsum("bj,qibe->qije", op.D, f1)
+    r = r + _einsum("fe,qijf->qije", op.Dz, f2)
+    vals = _einsum("ez,qije->qijz", op.Wz, r).reshape(ns * n * n, gz)
     y2 = jnp.zeros((ndofs // gz, gz), x1.dtype)
     y2 = y2.at[op.rows].add(vals, mode="promise_in_bounds")
     return y2.reshape(-1)
@@ -270,41 +223,15 @@ def stiffness_apply_extruded_pair(x1: jax.Array, x2: jax.Array,
 
 def stiffness_apply_indexed(x_flat: jax.Array, G: jax.Array,
                             coeff: jax.Array, dofmap: jax.Array,
-                            D: jax.Array, ndofs: int,
-                            pull=None, engine=None,
-                            engine_interpret: bool = False) -> jax.Array:
-    """G: (6, cells, n^3) — component-MAJOR: the naive (cells, n^3, 6)
-    device layout lane-pads its minor dim 6 to 128 on TPU (~21x HBM
-    size and per-apply G traffic); dofmap: (cells, n^3); `coeff`: per-cell
-    coefficients, or None for unit coefficients (skips the per-cell
-    multiply — the uniform-media fold passes the folded FIELD and no
-    coefficient vector).  `pull`: optional
-    gather_scatter.PullScatter tables — replaces the XLA scatter-add
-    (which serializes on TPU, ~50% of this apply) with the gather-only
-    pull transpose.  `engine`: optional pallas_gather.GatherPlan (built on
-    dofmap.ravel()) — routes BOTH directions through the windowed
-    one-hot MXU engine (the TPU fast path for general unstructured
-    meshes)."""
+                            D: jax.Array, ndofs: int) -> jax.Array:
+    """G: (6, cells, n^3) component-major metric; dofmap: (cells, n^3);
+    `coeff`: per-cell coefficients, or None for unit coefficients (skips
+    the per-cell multiply — the uniform-media fold passes the folded
+    FIELD and no coefficient vector)."""
     n = D.shape[0]
     cells = dofmap.shape[0]
-    if engine is not None:
-        # engine path: windowed one-hot gather/scatter + the FUSED
-        # Pallas contraction (the XLA dense-operator form materialises
-        # ~10x the minimum HBM traffic — pallas_gather.dense_contract)
-        from fustpu.ops import pallas_gather as pg
-
-        u2 = pg.gather(x_flat, engine,
-                       interpret=engine_interpret).reshape(cells, n ** 3)
-        y = pg.dense_contract(u2, G, D, coeff=coeff,
-                              interpret=engine_interpret)
-        return pg.scatter_add(y.reshape(-1), engine, ndofs,
-                              interpret=engine_interpret)
     u = gather_dofs(x_flat, dofmap).reshape(cells, n, n, n)
     y = _indexed_contract(u, G, coeff, D)
-    if pull is not None:
-        from fustpu.ops.gather_scatter import pull_scatter_dofs
-
-        return pull_scatter_dofs(y, pull)
     return scatter_add_dofs(y.reshape(cells, -1), dofmap, ndofs)
 
 
@@ -315,54 +242,36 @@ def _indexed_contract(u, G, coeff, D):
     fold the coefficient into `u` up front — valid because a per-cell
     constant commutes with the in-cell contractions).
 
-    DENSE-OPERATOR form: the factorized einsums batch tiny (n, n) dots
-    per cell — MXU-hostile shapes on TPU (a 128x128 systolic array sees
-    <4% utilisation at n=5).  Building the three (n^3, n^3) dense
-    derivative operators Dq3 = I (x) D (x) I instead puts CELLS on the M
-    axis — (cells, n^3) @ (n^3, n^3) is a clean MXU matmul — at n^2 more
-    FLOPs, which the MXU absorbs (~0.05 ms per million DOF in bf16).
-    f64 (the oracle-gated tests) keeps HIGHEST; f32 uses the validated
-    bf16x3 scheme (the same trade every fused kernel makes)."""
-    from fustpu.models.discretization import on_tpu
-
+    DENSE-OPERATOR form: the three (n^3, n^3) derivative operators
+    Dq3 = I (x) D (x) I put CELLS on the M axis of one (cells, n^3) @
+    (n^3, n^3) matmul per direction, at n^2 times the FLOPs of sum
+    factorisation."""
     cells, n = u.shape[0], D.shape[0]
-    dtype = u.dtype
-    eye = jnp.eye(n, dtype=dtype)
+    eye = jnp.eye(n, dtype=u.dtype)
     D3 = (jnp.kron(jnp.kron(D, eye), eye),
           jnp.kron(jnp.kron(eye, D), eye),
           jnp.kron(jnp.kron(eye, eye), D))
-    # bf16x3 only where the MXU-shape rationale applies; CPU/f64 keep
-    # HIGHEST (review r5: a CPU f32 run would pay 3 dense passes AND an
-    # accuracy downgrade for nothing).  (A stacked-operator two-dot form
-    # was cost-audited WORSE — 491 vs 416 MB — the concats outweigh the
-    # saved dispatches; the real traffic fix is the fused Pallas
-    # contraction in pallas_gather.dense_contract, used on TPU.)
-    con = _mk_einsum(
-        "bf16x3" if (dtype != jnp.float64 and on_tpu()) else _PRECISION,
-        dtype)
     u2 = u.reshape(cells, n ** 3)
-    wx = con("pq,cq->cp", D3[0], u2)
-    wy = con("pq,cq->cp", D3[1], u2)
-    wz = con("pq,cq->cp", D3[2], u2)
+    wx = _einsum("pq,cq->cp", D3[0], u2)
+    wy = _einsum("pq,cq->cp", D3[1], u2)
+    wz = _einsum("pq,cq->cp", D3[2], u2)
     c = 1.0 if coeff is None else coeff[:, None]
     f0 = c * (G[0] * wx + G[1] * wy + G[2] * wz)
     f1 = c * (G[1] * wx + G[3] * wy + G[4] * wz)
     f2 = c * (G[2] * wx + G[4] * wy + G[5] * wz)
-    y = con("pq,cp->cq", D3[0], f0)
-    y = y + con("pq,cp->cq", D3[1], f1)
-    y = y + con("pq,cp->cq", D3[2], f2)
+    y = _einsum("pq,cp->cq", D3[0], f0)
+    y = y + _einsum("pq,cp->cq", D3[1], f1)
+    y = y + _einsum("pq,cp->cq", D3[2], f2)
     return y.reshape(cells, n, n, n)
 
 
 def stiffness_apply_indexed_pair(x1: jax.Array, c1: jax.Array,
                                  x2: jax.Array, c2: jax.Array,
                                  G: jax.Array, dofmap: jax.Array,
-                                 D: jax.Array, ndofs: int,
-                                 pull=None, engine=None,
-                                 engine_interpret: bool = False):
+                                 D: jax.Array, ndofs: int) -> jax.Array:
     """stiffness(x1; c1) + stiffness(x2; c2) in one pass sharing a
     SINGLE scatter-add AND a single contraction chain: the indexed-path
-    counterpart of the structured pair kernel for heterogeneous
+    counterpart of the structured pair apply for heterogeneous
     Westervelt (the reference launches the two stiffness kernels back to
     back and pays two atomic-add passes,
     cuda/demo_nonlinear_bowl.py:618-640).  Because the per-cell
@@ -373,21 +282,8 @@ def stiffness_apply_indexed_pair(x1: jax.Array, c1: jax.Array,
     (6, cells, n^3) layout (see stiffness_apply_indexed)."""
     n = D.shape[0]
     cells = dofmap.shape[0]
-    if engine is not None:
-        from fustpu.ops import pallas_gather as pg
-
-        u1, u2 = pg.gather2(x1, x2, engine, interpret=engine_interpret)
-        u2f = (c1[:, None] * u1.reshape(cells, n ** 3)
-               + c2[:, None] * u2.reshape(cells, n ** 3))
-        y = pg.dense_contract(u2f, G, D, interpret=engine_interpret)
-        return pg.scatter_add(y.reshape(-1), engine, ndofs,
-                              interpret=engine_interpret)
     u1 = gather_dofs(x1, dofmap).reshape(cells, n, n, n)
     u2 = gather_dofs(x2, dofmap).reshape(cells, n, n, n)
     u = (c1[:, None, None, None] * u1 + c2[:, None, None, None] * u2)
     y = _indexed_contract(u, G, None, D)
-    if pull is not None:
-        from fustpu.ops.gather_scatter import pull_scatter_dofs
-
-        return pull_scatter_dofs(y, pull)
     return scatter_add_dofs(y.reshape(cells, -1), dofmap, ndofs)

@@ -1,25 +1,22 @@
-"""Matmul formulation of the spectral operators (the TPU fast path).
+"""Structured-grid stiffness operator (the 'mm' path: box and mapped
+meshes) and the host-side matrices and layouts it shares with other paths.
 
-Motivation: the element-batched layout (..., ncz, n) ends in a dimension of
-size n = P+1 (5..7), which the TPU pads to 128 lanes — a ~25x bandwidth tax
-on every intermediate.  Instead, express gather ("windows"), within-cell
-contraction, and scatter ("fold") as dense matrices applied per axis, so
-every step is a large 2D matmul with tile-friendly trailing dims:
+The apply is sum-factorised over the whole cell batch at once: the
+separable window gather (fustpu.ops.gather_scatter.windows3d) puts the
+field in the element-batched (ncx, n, ncy, n, ncz, n) layout, three
+contractions with the 1D GLL derivative D[q, i] give the reference
+gradients, the symmetric 6-component metric G mixes them elementwise,
+three transposed contractions and the separable overlap-add (fold3d) sum
+the cell contributions — the batched analogue of the reference's
+one-block-per-cell CUDA kernel (/root/reference/cuda/operators.py:73-192).
+G is stored as (6, ex, ey, ez) in the expanded-grid layout (cell (a,b,c)
+node (i,j,k) at (a n + i, b n + j, c n + k)), which reshapes for free to
+the element-batched layout.
 
-  W_ax  (e, g):  W[(b,j), y] = [y == b*P + j]     (window / gather; its
-                 transpose is the overlap-add fold = direct stiffness sum)
-  Dt_ax (e, e):  block-diag copies of the 1D GLL derivative matrix D[q, i]
-
-  expanded field u = Wx Wy Wz x                (cell (a,b,c), node (i,j,k)
-                                                at position (a n + i, ...))
-  stiffness: y = Wᵀ( Dtxᵀ f0 + Dtyᵀ f1 + Dtzᵀ f2 ),  where
-             (f0,f1,f2) = coeff * G @ (Dtx u, Dty u, Dtz u)   elementwise.
-
-Everything runs on the MXU; the extra FLOPs of multiplying by mostly-zero
-banded matrices are free (the operator is HBM-bandwidth-bound).  This
-replaces the reference's shared-memory CUDA contractions
-(/root/reference/cuda/operators.py:73-192) with an design native to a
-systolic-array machine.
+Sum factorisation rather than a dense window matrix and a dense
+block-diagonal derivative matrix per axis: those FLOPs grow with the cell
+count per axis, and on an H100 (700 W) at f32 that form was 1.2x slower at
+P=4 32^3 and 2.7x slower at the flagship's P=6 118x72x72 cells.
 
 The mass operator needs none of this: with GLL collocation the *assembled*
 mass operator is globally diagonal, so `mass_diagonal` precomputes the
@@ -36,6 +33,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from fustpu.ops.gather_scatter import fold3d, windows3d
+
+# HIGHEST keeps f32 contractions in full f32 (no TF32 on Hopper).
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -44,7 +44,8 @@ _PRECISION = jax.lax.Precision.HIGHEST
 # ---------------------------------------------------------------------------
 
 def window_matrix(ncells: int, P: int) -> np.ndarray:
-    """(ncells*(P+1), ncells*P+1) selection matrix W[(b,j), y] = [y==b*P+j]."""
+    """(ncells*(P+1), ncells*P+1) selection matrix W[(b,j), y] = [y==b*P+j]
+    (the extruded path's z-axis gather; its transpose is the z fold)."""
     n = P + 1
     e, g = ncells * n, ncells * P + 1
     W = np.zeros((e, g))
@@ -81,14 +82,13 @@ def expand_cell_field(coeff: np.ndarray, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Operator container
+# Operator container and application (jit-traceable)
 # ---------------------------------------------------------------------------
 
 class MMStiffness(NamedTuple):
     """Device-side stiffness operator for one (sub-)grid."""
 
-    W: tuple        # 3 x (e_ax, g_ax)
-    Dt: tuple       # 3 x (e_ax, e_ax)
+    D: jax.Array    # (n, n) 1D GLL derivative D[q, i]
     G: jax.Array    # (6, ex, ey, ez) — quadrature-scaled metric, with the
                     # material coefficient optionally folded in
 
@@ -98,76 +98,47 @@ def build_stiffness(nc, P: int, D_1d: np.ndarray, G_cells: np.ndarray,
     """G_cells: (cells, n^3, 6) float64 (precompute.cell_geometry_factors);
     coeff: optional (ncx, ncy, ncz) per-cell coefficient folded into G."""
     n = P + 1
-    W = tuple(jnp.asarray(window_matrix(c, P), dtype) for c in nc)
-    Dt = tuple(jnp.asarray(deriv_block_matrix(c, D_1d), dtype) for c in nc)
     Ge = to_expanded_layout(G_cells, nc, n)          # (ex, ey, ez, 6)
     Ge = np.moveaxis(Ge, -1, 0)                      # (6, ex, ey, ez)
     if coeff is not None:
         Ge = Ge * expand_cell_field(np.asarray(coeff), n)[None]
-    return MMStiffness(W=W, Dt=Dt, G=jnp.asarray(Ge, dtype))
+    return MMStiffness(D=jnp.asarray(D_1d, dtype), G=jnp.asarray(Ge, dtype))
 
 
-# ---------------------------------------------------------------------------
-# Application (jit-traceable)
-# ---------------------------------------------------------------------------
-
-def _axis_mm(M: jax.Array, x: jax.Array, axis: int,
-             transpose: bool = False) -> jax.Array:
-    """Apply matrix M along one axis of a 3D field."""
-    if axis == 0:
-        sub = "ya,yjk->ajk" if transpose else "ay,yjk->ajk"
-    elif axis == 1:
-        sub = "yb,iyk->ibk" if transpose else "by,iyk->ibk"
-    else:
-        sub = "yc,ijy->ijc" if transpose else "cy,ijy->ijc"
-    return jnp.einsum(sub, M, x, precision=_PRECISION)
+def _batched(a: jax.Array, n: int) -> jax.Array:
+    """(..., ex, ey, ez) expanded layout -> (..., a, n, b, n, c, n)."""
+    *lead, ex, ey, ez = a.shape
+    return a.reshape(*lead, ex // n, n, ey // n, n, ez // n, n)
 
 
-def expand(op: MMStiffness, x: jax.Array) -> jax.Array:
-    """(gx, gy, gz) -> (ex, ey, ez) element gather (u = Wx Wy Wz x)."""
-    for ax in range(3):
-        x = _axis_mm(op.W[ax], x, ax)
-    return x
-
-
-def fold(op: MMStiffness, u: jax.Array) -> jax.Array:
-    """(ex, ey, ez) -> (gx, gy, gz) overlap-add (y = Wxᵀ Wyᵀ Wzᵀ u)."""
-    for ax in range(3):
-        u = _axis_mm(op.W[ax], u, ax, transpose=True)
-    return u
+def _middle(op: MMStiffness, u: jax.Array,
+            coeff: jax.Array | None = None) -> jax.Array:
+    """Within-cell part of the apply on the element batch u."""
+    D = op.D
+    n = D.shape[0]
+    G = _batched(op.G, n)
+    wx = jnp.einsum("qi,aibjck->aqbjck", D, u, precision=_PRECISION)
+    wy = jnp.einsum("qj,aibjck->aibqck", D, u, precision=_PRECISION)
+    wz = jnp.einsum("qk,aibjck->aibjcq", D, u, precision=_PRECISION)
+    f0 = G[0] * wx + G[1] * wy + G[2] * wz
+    f1 = G[1] * wx + G[3] * wy + G[4] * wz
+    f2 = G[2] * wx + G[4] * wy + G[5] * wz
+    if coeff is not None:
+        f0, f1, f2 = f0 * coeff, f1 * coeff, f2 * coeff
+    y = jnp.einsum("qi,aqbjck->aibjck", D, f0, precision=_PRECISION)
+    y = y + jnp.einsum("qj,aibqck->aibjck", D, f1, precision=_PRECISION)
+    y = y + jnp.einsum("qk,aibjcq->aibjck", D, f2, precision=_PRECISION)
+    return y
 
 
 def stiffness_apply_mm(op: MMStiffness, x: jax.Array,
                        coeff_e: jax.Array | None = None) -> jax.Array:
     """y_grid = A_stiff(x_grid).  `coeff_e`: optional (ex, ey, ez) expanded
     per-cell coefficient (omit if folded into G at build time)."""
-    u = expand(op, x)
-    w = [_axis_mm(op.Dt[ax], u, ax) for ax in range(3)]
-    G = op.G
-    f = []
-    idx = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
-    for d in range(3):
-        a, b, c = idx[d]
-        fd = G[a] * w[0] + G[b] * w[1] + G[c] * w[2]
-        if coeff_e is not None:
-            fd = fd * coeff_e
-        f.append(fd)
-    r = sum(_axis_mm(op.Dt[ax], f[ax], ax, transpose=True) for ax in range(3))
-    return fold(op, r)
-
-
-def _fold_axis0_np(A: np.ndarray, P: int) -> np.ndarray:
-    """(nc*n, ...) expanded axis -> (nc*P + 1, ...) overlap-add, numpy
-    host (the adjoint of the window; O(N) adds instead of the dense
-    window matmul, which costs minutes at 10^8-DOF setup)."""
-    n = P + 1
-    ncells = A.shape[0] // n
-    rest = A.shape[1:]
-    B = A.reshape(ncells, n, *rest)
-    out = np.zeros((ncells * P + 1, *rest))
-    out[:ncells * P] += B[:, :P].reshape(ncells * P, *rest)
-    out[P::P] += B[:, P]
-    return out
+    n = op.D.shape[0]
+    P = n - 1
+    c = None if coeff_e is None else _batched(coeff_e, n)
+    return fold3d(_middle(op, windows3d(x, P), c), P)
 
 
 def stiffness_apply_mm_pair(op: MMStiffness, x1: jax.Array, x2: jax.Array,
@@ -176,18 +147,16 @@ def stiffness_apply_mm_pair(op: MMStiffness, x1: jax.Array, x2: jax.Array,
 
     Per-cell coefficients are constant within each cell, so they commute
     with the within-cell derivative contractions once the fields are in
-    the expanded (windowed) layout: combine u = c1_e*E(x1) + c2_e*E(x2)
-    there and run a single unit-coefficient middle+fold.  Halves the
-    heavy work of the heterogeneous Westervelt stage, which needs
+    the element-batched layout: combine u = c1*E(x1) + c2*E(x2) there and
+    run a single unit-coefficient middle+fold.  Halves the heavy work of
+    the heterogeneous Westervelt stage, which needs
     A_{-1/rho}(u) + A_{-delta/(rho c^2)}(v) (the reference launches two
     stiffness kernels, cuda/demo_nonlinear_bowl.py:618-625)."""
-    u = expand(op, x1) * c1_e + expand(op, x2) * c2_e
-    w = [_axis_mm(op.Dt[ax], u, ax) for ax in range(3)]
-    G = op.G
-    idx = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
-    f = [G[a] * w[0] + G[b] * w[1] + G[c] * w[2] for a, b, c in idx]
-    r = sum(_axis_mm(op.Dt[ax], f[ax], ax, transpose=True) for ax in range(3))
-    return fold(op, r)
+    n = op.D.shape[0]
+    P = n - 1
+    u = (windows3d(x1, P) * _batched(c1_e, n)
+         + windows3d(x2, P) * _batched(c2_e, n))
+    return fold3d(_middle(op, u), P)
 
 
 def mass_diagonal(nc, P: int, detJ_cells: np.ndarray,
@@ -197,9 +166,8 @@ def mass_diagonal(nc, P: int, detJ_cells: np.ndarray,
 
     Strided in-place accumulation: global node (a*P+i, b*P+j, c*P+k) is
     the step-P slice out[i::P, j::P, k::P], so the fold is n^3 strided
-    adds of (ncx, ncy, ncz) blocks — no expanded-layout transpose, no
-    window matmuls (the transpose path measured ~30 s at 67M DOF;
-    setup-time work, BENCH_NOTES r4)."""
+    adds of (ncx, ncy, ncz) blocks — no expanded-layout transpose, which
+    is the slow part of host set-up at 10^8 DOF."""
     n = P + 1
     ncx, ncy, ncz = nc
     dJ = detJ_cells.reshape(ncx, ncy, ncz, n, n, n)

@@ -2,8 +2,7 @@
 (axpy/copy/fill/pointwise_divide/square, /root/reference/cuda/operators.py
 :195-275 and numba-cpu/operators.py:230-301).
 
-On TPU these are trivially jnp expressions that XLA fuses into neighbouring
-ops; they exist as named functions so reference users find the same
+These are trivially jnp expressions that XLA fuses into neighbouring ops; they exist as named functions so reference users find the same
 vocabulary (and so model code reads like the reference's update steps).
 All are pure (return new arrays) — the functional analogue of the
 reference's in-place kernels.

@@ -2,7 +2,7 @@
 
 The reference partitions ANY mesh across ranks at read time (DOLFINx
 GhostMode + IndexMap) and scatters ghost DOFs over MPI
-(/root/reference/cuda/utils.py:8-78, cuda/scatterer.py:104-277).  The TPU
+(/root/reference/cuda/utils.py:8-78, cuda/scatterer.py:104-277).  The
 equivalent here: cell STACKS of an ExtrudedHexMesh are partitioned by
 recursive coordinate bisection of their 2D footprints; each device gets a
 padded local row space (its stacks' 2D rows, z structured on the lanes);
@@ -26,7 +26,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from fustpu.models import sources, timestepping
 from fustpu.models.westervelt import WesterveltModel
 from fustpu.ops import operators as xops
-from fustpu.ops import spectral_mm as mm
 
 try:  # jax >= 0.6 exports shard_map at top level
     shard_map = jax.shard_map
@@ -137,17 +136,13 @@ class ExtrudedShardedModel:
         # ---- per-device geometry ------------------------------------------
         ez = mesh.nz * n
 
-        def build_G6():
-            """(k, 6, smax, n, n, ez) per-device metric blocks — lazy so
-            the corner (capacity) mode never materialises _G_host."""
-            G_host = disc._G_host                      # (cells, n^3, 6)
-            G6 = np.zeros((k, 6, smax, n, n, ez))
-            for d in range(k):
-                sc = mesh.stack_cells[stacks_of[d]]    # (sd, nz)
-                Gs = G_host[sc].reshape(len(sc), mesh.nz, n, n, n, 6)
-                G6[d, :, :len(sc)] = Gs.transpose(
-                    5, 0, 2, 3, 1, 4).reshape(6, len(sc), n, n, ez)
-            return G6
+        G_host = disc._G_host                          # (cells, n^3, 6)
+        G6 = np.zeros((k, 6, smax, n, n, ez))          # per-device blocks
+        for d in range(k):
+            sc = mesh.stack_cells[stacks_of[d]]        # (sd, nz)
+            Gs = G_host[sc].reshape(len(sc), mesh.nz, n, n, n, 6)
+            G6[d, :, :len(sc)] = Gs.transpose(
+                5, 0, 2, 3, 1, 4).reshape(6, len(sc), n, n, ez)
 
         # ---- distributed context ------------------------------------------
         put = self._put
@@ -155,98 +150,11 @@ class ExtrudedShardedModel:
             "shl": put(shl, np.int32),
             "shm": put(shm[..., None].astype(self.dtype)),
         }
-        repl = {}
-
-        # per-device stiffness engine: the fused Pallas kernel when the
-        # base model resolved to it (TPU production path; interpret mode
-        # on CPU meshes in tests), the XLA einsum path otherwise
-        self._ext_pallas = model.impl == "extruded_pallas"
-        self._ext_corner = getattr(model, "_ext_corner", False)
-        from fustpu.models.discretization import on_tpu
-
-        self._pallas_interpret = not on_tpu()
-        hetero_pair = self.kind == "westervelt" and not model.uniform
-        if self._ext_pallas:
-            from fustpu.ops import pallas_extruded as pex
-
-            geom_deg = 1 if mesh.geom_nodes is None else 2
-            S_b = pex.probed_stack_batch(n, smax, ez, gz,
-                                         pair=hetero_pair,
-                                         corner=self._ext_corner,
-                                         geom_deg=geom_deg)
-            if S_b is None:  # pragma: no cover - guarded by model resolve
-                raise ValueError("no VMEM-feasible stack batch per device")
-            smax_pad = -(-smax // S_b) * S_b
-            rows_t = np.zeros((k, n * n, smax_pad), np.int32)
-            rows_t[:, :, :smax] = loc_rows.transpose(0, 2, 1)
-            if not self._ext_corner:
-                # (k, n^2, 6, smax_pad, ez) footprint-node-major stream
-                G6 = build_G6()
-                Gt = np.zeros((k, n * n, 6, smax_pad, ez))
-                Gt[:, :, :, :smax] = G6.transpose(
-                    0, 3, 4, 1, 2, 5).reshape(k, n * n, 6, smax, ez)
-            def coeff_local(c_cells):
-                """(num_cells,) per-cell coefficient -> (k, smax, ez)
-                z-expanded device blocks."""
-                c_cells = np.asarray(c_cells, np.float64).reshape(-1)
-                out = np.zeros((k, smax, ez))
-                for d in range(k):
-                    cs = c_cells[mesh.stack_cells[stacks_of[d]]]
-                    out[d, :len(cs)] = np.repeat(cs, n, axis=1)
-                return out
-
-            nc_ = (mesh.num_cells,)
-            c_f, rho_f, _, _ = model.material.cell_fields(nc_)
-            lin_hetero = not model.uniform and self.kind == "linear"
-            D_t = tuple(map(tuple, np.asarray(disc._D_host, np.float64)))
-            if self._ext_corner:
-                # capacity mode: per-device monomial streams (37
-                # channels trilinear / 163 hex27, identity-padded)
-                # instead of the 6/quad-point G
-                Tall = pex.corner_stream(
-                    mesh, np.broadcast_to(-1.0 / rho_f, nc_)
-                    if lin_hetero else None)        # (ns, nz, nch+1)
-                Tc = np.empty((k, Tall.shape[2], smax_pad, mesh.nz))
-                Tc[:] = pex._t_identity(geom_deg)[None, :, None, None]
-                for d in range(k):
-                    Tc[d, :, :len(stacks_of[d]), :] = Tall[
-                        stacks_of[d]].transpose(2, 0, 1)
-                dist["Tc"] = put(Tc)
-                Uz, zrow, wzrow, XQ, WQ = pex._z_vectors(mesh)
-                repl["Uzp"] = self._repl(Uz)
-                repl["zrowp"] = self._repl(zrow)
-                repl["wzrowp"] = self._repl(wzrow)
-                self._pex_statics = (D_t, XQ, WQ, S_b, hetero_pair,
-                                     geom_deg)
-            else:
-                if lin_hetero:
-                    # fold the per-cell coefficient into the stream
-                    cl = coeff_local(np.broadcast_to(-1.0 / rho_f, nc_))
-                    Gt[:, :, :, :smax] *= cl[:, None, None, :, :]
-                self._pex_statics = (D_t, S_b)
-                dist["Gt"] = put(Gt)
-            dist["rows_t"] = put(rows_t, np.int32)
-            if hetero_pair:
-                delta_f = np.broadcast_to(np.asarray(
-                    model.material.diffusivity_of_sound(
-                        model.source.angular_frequency), np.float64), nc_)
-                ce = np.zeros((k, 2, smax_pad, ez))
-                ce[:, 0, :smax] = coeff_local(
-                    np.broadcast_to(-1.0 / rho_f, nc_))
-                ce[:, 1, :smax] = coeff_local(
-                    -delta_f / (rho_f * c_f * c_f))
-                dist["ce_p"] = put(ce)
-            repl["WzTp"] = self._repl(
-                mm.window_matrix(mesh.nz, mesh.degree).T)
-            repl["Dzp"] = self._repl(
-                mm.deriv_block_matrix(mesh.nz, disc._D_host))
-        else:
-            eop = disc.extruded_op
-            dist["G6"] = put(build_G6())
-            dist["rows"] = put(loc_rows.reshape(k, -1), np.int32)
-            repl["Wz"] = self._repl(eop.Wz)
-            repl["Dz"] = self._repl(eop.Dz)
-            repl["D"] = self._repl(eop.D)
+        eop = disc.extruded_op
+        dist["G6"] = put(G6)
+        dist["rows"] = put(loc_rows.reshape(k, -1), np.int32)
+        repl = {"Wz": self._repl(eop.Wz), "Dz": self._repl(eop.Dz),
+                "D": self._repl(eop.D)}
 
         def put_vec(a):
             # global flat diagonal -> per-device (nloc, gz) rows; pad rows
@@ -339,47 +247,16 @@ class ExtrudedShardedModel:
             rows=ctx["dist"]["rows"], G6=ctx["dist"]["G6"],
             Wz=ctx["repl"]["Wz"], Dz=ctx["repl"]["Dz"], D=ctx["repl"]["D"])
 
-    def _corner_op(self, ctx, ce=None):
-        from fustpu.ops import pallas_extruded as pex
-
-        return pex.PallasExtrudedCorner(
-            T=ctx["dist"]["Tc"], rows=ctx["dist"]["rows_t"], ce=ce,
-            Uz=ctx["repl"]["Uzp"], zrow=ctx["repl"]["zrowp"],
-            wzrow=ctx["repl"]["wzrowp"], WzT=ctx["repl"]["WzTp"],
-            Dz=ctx["repl"]["Dzp"], statics=self._pex_statics)
-
     def _local_stiffness(self, ctx, x_flat, coeff_e=None):
-        """Single-field per-device apply: fused kernel or XLA einsums."""
-        nd = self.nloc * self.gz
-        if self._ext_pallas:
-            from fustpu.ops import pallas_extruded as pex
-
-            op = (self._corner_op(ctx) if self._ext_corner
-                  else pex.PallasExtruded(
-                      Gt=ctx["dist"]["Gt"], rows=ctx["dist"]["rows_t"],
-                      WzT=ctx["repl"]["WzTp"], Dz=ctx["repl"]["Dzp"],
-                      statics=self._pex_statics))
-            return pex.stiffness_apply_extruded_pallas(
-                x_flat, op, nd, interpret=self._pallas_interpret)
-        return xops.stiffness_apply_extruded(x_flat, self._local_op(ctx),
-                                             nd, coeff_e=coeff_e)
+        return xops.stiffness_apply_extruded(
+            x_flat, self._local_op(ctx), self.nloc * self.gz,
+            coeff_e=coeff_e)
 
     def _local_pair_stiffness(self, ctx, u_flat, v_flat):
-        nd = self.nloc * self.gz
-        if self._ext_pallas:
-            from fustpu.ops import pallas_extruded as pex
-
-            op = (self._corner_op(ctx, ce=ctx["dist"]["ce_p"])
-                  if self._ext_corner
-                  else pex.PallasExtrudedPair(
-                      Gt=ctx["dist"]["Gt"], rows=ctx["dist"]["rows_t"],
-                      ce=ctx["dist"]["ce_p"], WzT=ctx["repl"]["WzTp"],
-                      Dz=ctx["repl"]["Dzp"], statics=self._pex_statics))
-            return pex.stiffness_apply_extruded_pallas_pair(
-                u_flat, v_flat, op, nd, interpret=self._pallas_interpret)
         d = ctx["dist"]
         return xops.stiffness_apply_extruded_pair(
-            u_flat, v_flat, self._local_op(ctx), nd, d["c3_x"], d["c4_x"])
+            u_flat, v_flat, self._local_op(ctx), self.nloc * self.gz,
+            d["c3_x"], d["c4_x"])
 
     def _local_rhs(self, ctx, t, u2, v2):
         """u2, v2: (nloc, gz) device-local row blocks (consistent)."""
@@ -530,10 +407,8 @@ class ExtrudedShardedModel:
     def solver_fn(self, num_steps: int, clamp_tf: bool = False,
                   probe=None):
         """The jitted sharded solver `fn(ctx, state_tuple, dt, tf)` for
-        `num_steps` scan steps, WITHOUT executing it — lowerable against
-        ShapeDtypeStruct avals (e.g. for deviceless multi-chip AOT
-        certification over a `jax.experimental.topologies` mesh swapped
-        into `self.device_mesh`)."""
+        `num_steps` scan steps, WITHOUT executing it (lowerable against
+        ShapeDtypeStruct avals for a compile-only memory check)."""
         key = ("solve", num_steps, clamp_tf, probe)
         if key not in self._solve_cache:
             vec = P(AXIS)
@@ -615,16 +490,13 @@ class IndexedShardedModel:
     reference's read-time partition + IndexMap scatterers
     (/root/reference/cuda/utils.py:8-78)."""
 
-    def __init__(self, model, num_devices: int | None = None, devices=None,
-                 stiffness_impl: str = "auto"):
+    def __init__(self, model, num_devices: int | None = None, devices=None):
         from fustpu.mesh.unstructured import UnstructuredHexMesh
 
         mesh = model.mesh
         if not isinstance(mesh, UnstructuredHexMesh):
             raise TypeError("IndexedShardedModel needs an unstructured "
                             "mesh (use ShardedModel for box meshes)")
-        if stiffness_impl not in ("auto", "indexed", "indexed_engine"):
-            raise ValueError(f"stiffness_impl={stiffness_impl!r}")
         self.model = model
         self.mesh = mesh
         self.kind = ("westervelt" if isinstance(model, WesterveltModel)
@@ -678,8 +550,8 @@ class IndexedShardedModel:
 
         disc = model.disc
         G_host = disc._G_host
-        # component-major per-device blocks (see operators
-        # .stiffness_apply_indexed: minor-dim-6 layouts lane-pad to 128)
+        # component-major per-device blocks (operators
+        # .stiffness_apply_indexed layout)
         Gd = np.zeros((k, 6, cmax, nd))
         for d in range(k):
             Gd[d, :, :len(cells_of[d])] = np.moveaxis(
@@ -731,63 +603,8 @@ class IndexedShardedModel:
         self.has_abs = m.fvec_abs is not None
         dist["rw"] = put(self._mult_weights())
 
-        # per-device gather/scatter engine (fustpu.ops.pallas_gather):
-        # the TPU fast path for the indexed apply, mirroring the
-        # single-device 'auto' choice.  Local dofmaps padded with the
-        # DEAD id nloc (padded cells gather 0, contributions dropped);
-        # one stacked plan pytree with forced-common statics drives the
-        # identical per-device trace under shard_map.
-        from fustpu.models.discretization import on_tpu
-
-        if stiffness_impl == "auto":
-            stiffness_impl = "indexed_engine" if on_tpu() else "indexed"
-        self.impl = stiffness_impl
-        self._eng_statics = None
-        self._fe_statics = None
-        if stiffness_impl == "indexed_engine":
-            from fustpu.ops import pallas_gather as pg
-
-            eng_dm = np.full((k, cmax, nd), nloc, np.int64)
-            for d in range(k):
-                eng_dm[d, :len(cells_of[d])] = (
-                    ldm[d, :len(cells_of[d])].astype(np.int64))
-            self._eng_interpret = not on_tpu()
-            # fused single-kernel form first (one Mosaic kernel per
-            # stiffness apply per device, no G/ldm/plan tensors held);
-            # the stacked 3-kernel engine is the fallback
-            fres = pg.build_fused_engines_stacked(
-                [eng_dm[d] for d in range(k)], nloc,
-                [Gd[d] for d in range(k)],
-                np.asarray(disc._D_host), self.dtype)
-            if fres is not None:
-                fw, fc, fg, fd3, self._fe_plan_statics, \
-                    self._fe_statics = fres
-                dist["fe_woff"] = put(fw, np.int32)
-                dist["fe_code"] = put(fc, np.int32)
-                dist["fe_g"] = put(fg)
-                repl["fe_d3"] = self._repl(
-                    fd3.astype(jnp.dtype(self.dtype)))
-            else:
-                ew, ec, es, ei, self._eng_statics = \
-                    pg.build_stacked_plans(
-                        [eng_dm[d].reshape(-1) for d in range(k)], nloc)
-                if not pg.plan_covers(es.shape[1], eng_dm[0].size):
-                    import warnings
-
-                    warnings.warn(
-                        "gather-engine windows cover this partition "
-                        f"poorly ({es.shape[1]}/{eng_dm[0].size} spill)"
-                        " — using the plain indexed path", stacklevel=2)
-                    self.impl, self._eng_statics = "indexed", None
-                else:
-                    dist["eng_woff"] = put(ew, np.int32)
-                    dist["eng_code"] = put(ec, np.int32)
-                    dist["eng_spos"] = put(es, np.int32)
-                    dist["eng_sidx"] = put(ei, np.int32)
-        if self._fe_statics is None:
-            # the explicit-dofmap tensors only exist off the fused path
-            dist["G"] = put(Gd)
-            dist["ldm"] = put(ldm.reshape(k, -1), np.int32)
+        dist["G"] = put(Gd)
+        dist["ldm"] = put(ldm.reshape(k, -1), np.int32)
         self.ctx = {"dist": dist, "repl": repl}
         self.ctx_spec = {
             "dist": {key: P(AXIS) for key in dist},
@@ -833,39 +650,14 @@ class IndexedShardedModel:
     def _local_rhs(self, ctx, t, u, v):
         d = ctx["dist"]
         m = self.model
-        if self._fe_statics is not None:
-            from fustpu.ops import pallas_gather as pg
-
-            fe = pg.FusedEngine(
-                pg.GatherPlan(d["fe_woff"], d["fe_code"],
-                              jnp.zeros((0,), jnp.int32),
-                              jnp.zeros((0,), jnp.int32),
-                              self._fe_plan_statics),
-                d["fe_g"], ctx["repl"]["fe_d3"], self._fe_statics)
-            stiff = lambda x, c: pg.fused_apply(
-                x, c, fe, self.nloc, interpret=self._eng_interpret)
-            stiff_pair = lambda x1, c1, x2, c2: pg.fused_apply_pair(
-                x1, c1, x2, c2, fe, self.nloc,
-                interpret=self._eng_interpret)
-        else:
-            n3 = self.mesh.element.ndofs
-            ldm = d["ldm"].reshape(-1, n3)
-            D = ctx["repl"]["D"]
-            if self._eng_statics is not None:
-                from fustpu.ops import pallas_gather as pg
-
-                plan = pg.GatherPlan(
-                    d["eng_woff"], d["eng_code"],
-                    d["eng_spos"], d["eng_sidx"], self._eng_statics)
-                kw = dict(engine=plan,
-                          engine_interpret=self._eng_interpret)
-            else:
-                kw = {}
-            stiff = lambda x, c: xops.stiffness_apply_indexed(
-                x, d["G"], c, ldm, D, self.nloc, **kw)
-            stiff_pair = lambda x1, c1, x2, c2: \
-                xops.stiffness_apply_indexed_pair(
-                    x1, c1, x2, c2, d["G"], ldm, D, self.nloc, **kw)
+        n3 = self.mesh.element.ndofs
+        ldm = d["ldm"].reshape(-1, n3)
+        D = ctx["repl"]["D"]
+        stiff = lambda x, c: xops.stiffness_apply_indexed(
+            x, d["G"], c, ldm, D, self.nloc)
+        stiff_pair = lambda x1, c1, x2, c2: \
+            xops.stiffness_apply_indexed_pair(
+                x1, c1, x2, c2, d["G"], ldm, D, self.nloc)
         if self.kind == "linear":
             b = self._exchange(ctx, stiff(u, d["c2"]))
             a_c, a_s = sources.linear_source_coeffs(t, m.source, m.c_src)
@@ -942,16 +734,14 @@ class IndexedShardedModel:
         return out
 
 
-def shard_unstructured(model, num_devices: int | None = None, devices=None,
-                       stiffness_impl: str = "auto"):
+def shard_unstructured(model, num_devices: int | None = None, devices=None):
     """Distribute a model on ANY unstructured mesh: the factorized
     extruded sharding for prismatic meshes, the generic indexed sharding
-    (gather/scatter-engine-backed on TPU) otherwise."""
+    otherwise."""
     from fustpu.mesh.extruded import ExtrudedHexMesh
 
     if isinstance(model.mesh, ExtrudedHexMesh):
         return ExtrudedShardedModel(model, num_devices=num_devices,
                                     devices=devices)
     return IndexedShardedModel(model, num_devices=num_devices,
-                               devices=devices,
-                               stiffness_impl=stiffness_impl)
+                               devices=devices)

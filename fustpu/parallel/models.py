@@ -4,10 +4,11 @@ Wraps a single-device LinearWaveModel / WesterveltModel and distributes its
 state and geometry over a DeviceGrid.  The full RK4 solve runs inside one
 `shard_map`-wrapped `lax.scan`.
 
-Communication structure per RK stage: exactly ONE `halo_sum` (ppermute over
-ICI) — only the stiffness apply couples neighbouring cells.  Every
-mass-type term (unsteady LHS, v^2 term, sources, absorbing boundary) is a
-globally-diagonal elementwise multiply by a *consistent* distributed vector
+Communication structure per RK stage: exactly ONE `halo_sum` (a ppermute
+pair per sharded axis) — only the stiffness apply couples neighbouring
+cells.  Every mass-type term (unsteady LHS, v^2 term, sources, absorbing
+boundary) is a globally-diagonal elementwise multiply by a *consistent*
+distributed vector
 (shared planes hold full sums on every owner), so it commutes with the
 exchange and is added after it.  The reference needs 3 scatter_forward + 2
 scatter_reverse MPI rounds per stage instead
@@ -44,23 +45,12 @@ def split_expanded_field(arr: np.ndarray, nc, S, n: int) -> np.ndarray:
     return np.ascontiguousarray(a.transpose(perm))
 
 
-def _split_pallas_G(Gp: np.ndarray, S) -> np.ndarray:
-    """Pallas-layout G (ncx, n, 6, ey, ez) -> (Sx, Sy, Sz, ncx_l, n, 6,
-    ley, lez) device blocks."""
-    ncx, n, six, ey, ez = Gp.shape
-    lx, ly, lz = ncx // S[0], ey // S[1], ez // S[2]
-    a = Gp.reshape(S[0], lx, n, six, S[1], ly, S[2], lz)
-    return np.ascontiguousarray(a.transpose(0, 4, 6, 1, 2, 3, 5, 7))
-
-
 class ShardedModel:
-    """Distributes a built single-device model over `grid` and exposes
-    step/solve running under shard_map.  `stiffness_impl` defaults to the
-    base model's choice (fused Pallas kernel per device on TPU, XLA matmul
-    formulation elsewhere)."""
+    """Distributes a built single-device model on a box or mapped mesh over
+    `grid` and exposes step/solve running under shard_map; each device
+    applies the structured ('mm') stiffness to its block."""
 
-    def __init__(self, model, grid: sh.DeviceGrid, stiffness_impl=None,
-                 force_y_parts: int = 0):
+    def __init__(self, model, grid: sh.DeviceGrid):
         self.model = model
         self.grid = grid
         self.kind = ("westervelt" if isinstance(model, WesterveltModel)
@@ -119,162 +109,16 @@ class ShardedModel:
             return grid.put(sh.split_node_field(pad_node(a, val), nc, S,
                                                 Pd), dtype)
 
-        self.impl = stiffness_impl or getattr(model, "impl", "mm")
-        # memory-capacity mode: corner-streamed kernel per device (37
-        # floats/cell instead of 6/quad-point — multi-chip runs scale DOF
-        # count, which is exactly where the G stream's memory wall bites)
-        self._corner = (self.impl == "pallas_corner"
-                        or (stiffness_impl is None
-                            and getattr(model, "_corner", False)))
-        if self.impl == "pallas_corner":
-            self.impl = "pallas"
-        from fustpu.ops import pallas_stiffness as ps
-
-        self._pair = False
-        # per-device y-slab partition for the fused kernel: if the local
-        # block doesn't fit the single-slab VMEM budget, run the kernel
-        # per y-slab (PallasStiffnessSplit) — mm only when no partition
-        # exists at all.  Never silently: log whichever engages.
-        self._y_sizes = None
-        if self.impl == "pallas" and force_y_parts > 1:
-            self._y_sizes = tuple(ps._slab_sizes(
-                self.lc[1], min(force_y_parts, self.lc[1])))
-        elif self.impl == "pallas":
-            sizes = ps.pick_y_parts(n, self.lc[1], self.lc[2],
-                                    self.lgrid[2], corner=self._corner)
-            if sizes is None:
-                print("[fustpu] ShardedModel: no VMEM-feasible y "
-                      "partition for the per-device block; falling back "
-                      "to the matmul path", flush=True)
-                self.impl = "mm"
-            elif len(sizes) > 1:
-                print(f"[fustpu] ShardedModel: per-device y-z extent "
-                      f"exceeds the single-slab VMEM budget; fused "
-                      f"kernel runs y-partitioned ({sizes})", flush=True)
-                self._y_sizes = tuple(sizes)
-        # interpret mode lets the pallas path run on CPU device meshes
-        # (tests); real TPUs compile the kernel
-        dev = jax.devices()[0]
-        self._pallas_interpret = not ("tpu" in dev.platform.lower()
-                                      or "tpu" in str(dev).lower())
+        self.impl = model.impl
 
         def repl_put(a):
             return grid.replicate(a, dtype)
 
-        if self.impl == "pallas":
-            # per-device fused-kernel operator(s); G split into device
-            # tiles (and further into y-slabs when partitioned)
-            self._D_host = tuple(map(tuple,
-                                     np.asarray(disc._D_host, np.float64)))
-            y_sizes = self._y_sizes or (self.lc[1],)
-            for j, sj in enumerate(y_sizes):
-                repl[f"Wy{j}"] = repl_put(mm.window_matrix(sj, Pd))
-                repl[f"Dey{j}"] = repl_put(
-                    mm.deriv_block_matrix(sj, disc._D_host))
-            repl["WzT"] = repl_put(mm.window_matrix(self.lc[2], Pd).T)
-            repl["Dez"] = repl_put(
-                mm.deriv_block_matrix(self.lc[2], disc._D_host))
-            if self._corner:
-                from fustpu.elements import gll
-
-                lz = self.lc[2]
-                nodes = gll.gll_nodes_unit(n)
-                wts = gll.gll_points_weights_unit(n)[1]
-                UzT = np.zeros((lz, lz * n))
-                UzT[np.repeat(np.arange(lz), n), np.arange(lz * n)] = 1.0
-                repl["UzTc"] = repl_put(UzT)
-                repl["zrow"] = repl_put(np.tile(nodes, lz)[None, :])
-                repl["wzrow"] = repl_put(np.tile(wts, lz)[None, :])
-                for j, sj in enumerate(y_sizes):
-                    repl[f"ycol{j}"] = repl_put(
-                        np.tile(nodes, sj)[:, None])
-                    repl[f"wycol{j}"] = repl_put(
-                        np.tile(wts, sj)[:, None])
-                self._corner_statics = (
-                    self._D_host,
-                    tuple(np.asarray(nodes, np.float64)),
-                    tuple(np.asarray(wts, np.float64)))
-            if model.uniform:
-                coeffs = [None]
-            else:
-                c_f, rho_f, _, _ = model.material.cell_fields(mesh.nc)
-                if self.kind == "linear":
-                    coeffs = [-1.0 / rho_f]
-                else:
-                    delta_f = np.broadcast_to(np.asarray(
-                        model.material.diffusivity_of_sound(
-                            model.source.angular_frequency)), mesh.nc)
-                    coeffs = [-1.0 / rho_f,
-                              -delta_f / (rho_f * c_f * c_f)]
-            if self._corner:
-                # corner-streamed capacity mode: per-device (lx, 37, ly,
-                # lz) coefficient tiles; ghost-padded cells get UNIT
-                # geometry with a ZERO material coefficient (the kernel
-                # divides by det(J) — a zero-geometry pad would be 0/0)
-                unit = np.array([[a, b, c] for a in (0, 1) for b in (0, 1)
-                                 for c in (0, 1)], np.float64)
-                corners = np.asarray(mesh.cell_corners_flat, np.float64)
-                corners_pad = np.broadcast_to(
-                    unit, (int(np.prod(nc)), 8, 3)).copy()
-                live = pad_cell3(np.ones(mesh.nc)).reshape(-1) > 0
-                corners_pad[live] = corners
-                for k, cf in enumerate(coeffs):
-                    cf3 = np.ones(mesh.nc) if cf is None \
-                        else np.broadcast_to(cf, mesh.nc)
-                    cf_pad = pad_cell3(cf3).reshape(-1)
-                    T = ps.jacobian_coefficients(corners_pad, cf_pad)
-                    JC = T.reshape(*nc, 37).transpose(0, 3, 1, 2)
-                    lx, ly, lz = self.lc
-                    JCs = JC.reshape(S[0], lx, 37, S[1], ly, S[2], lz)
-                    dist[f"JC{k}"] = grid.put(np.ascontiguousarray(
-                        JCs.transpose(0, 3, 5, 1, 2, 4, 6)), dtype)
-                self._n_ops = len(coeffs)
-                G_pad = None
-            else:
-                G_pad = pad_cells_flat(disc._G_host)
-            # heterogeneous Westervelt on single-slab devices: ONE
-            # unit-coefficient G tile + a per-cell coefficient block, and
-            # the stage runs the pair kernel (see pallas_stiffness).  The
-            # pair kernel costs extra VMEM (2 coefficient scratch planes +
-            # doubled x-plane IO), so gate on its own budget — in the band
-            # where only the plain kernel fits, fall back to two folded
-            # operators instead of failing at Mosaic compile.
-            self._pair = (not self._corner
-                          and len(coeffs) == 2 and self._y_sizes is None
-                          and ps.pallas_fits(n, self.lc[1], self.lc[2],
-                                             self.lgrid[2], pair=True))
-            if self._corner:
-                pass
-            elif self._pair:
-                dist["Gp0"] = grid.put(
-                    _split_pallas_G(ps.pack_G(G_pad, nc, n), S), dtype)
-                C = np.stack([pad_cell3(np.broadcast_to(cf, mesh.nc))
-                              for cf in coeffs], axis=1)  # (ncx,2,ncy,ncz)
-                lx, ly, lz = self.lc
-                Cs = C.reshape(S[0], lx, 2, S[1], ly, S[2], lz)
-                dist["Cp"] = grid.put(np.ascontiguousarray(
-                    Cs.transpose(0, 3, 5, 1, 2, 4, 6)), dtype)
-                UzT = np.zeros((lz, lz * n))
-                UzT[np.repeat(np.arange(lz), n), np.arange(lz * n)] = 1.0
-                repl["UzT"] = repl_put(UzT)
-            else:
-                for k, cf in enumerate(coeffs):
-                    cf_pad = None if cf is None else pad_cell3(
-                        np.broadcast_to(cf, mesh.nc))
-                    Gp = ps.pack_G(G_pad, nc, n, coeff=cf_pad)
-                    dist[f"Gp{k}"] = grid.put(_split_pallas_G(Gp, S),
-                                              dtype)
-        else:
-            # local (per-device) matmul-form matrices — same on every device
-            repl["W"] = tuple(
-                repl_put(mm.window_matrix(c, Pd)) for c in self.lc)
-            repl["Dt"] = tuple(
-                repl_put(mm.deriv_block_matrix(c, disc._D_host))
-                for c in self.lc)
-            G_exp = mm.to_expanded_layout(
-                pad_cells_flat(disc._G_host), nc, n)       # (ex,ey,ez,6)
-            dist["G"] = grid.put(split_expanded_field(
-                np.moveaxis(G_exp, -1, 0), nc, S, n), dtype)
+        repl["D"] = repl_put(disc._D_host)
+        G_exp = mm.to_expanded_layout(
+            pad_cells_flat(disc._G_host), nc, n)           # (ex,ey,ez,6)
+        dist["G"] = grid.put(split_expanded_field(
+            np.moveaxis(G_exp, -1, 0), nc, S, n), dtype)
 
         def put_exp(a):
             # expanded (ex, ey, ez) coefficient field -> zero-padded tiles
@@ -313,83 +157,9 @@ class ShardedModel:
         self._solve_cache = {}
 
     # ---------------- local physics (inside shard_map) -------------------
-    def _local_stiffness(self, ctx, x, coeff_e=None, op_idx=0):
-        if self.impl == "pallas" and self._corner:
-            from fustpu.ops import pallas_stiffness as ps
-
-            n = self.mesh.degree + 1
-            r = ctx["repl"]
-            JC = ctx["dist"][f"JC{op_idx}"]
-
-            def corner_op(JCj, j):
-                return ps.PallasStiffnessCorner(
-                    JC=JCj, Wy=r[f"Wy{j}"], WzT=r["WzT"],
-                    Dey=r[f"Dey{j}"], Dez=r["Dez"], UzT=r["UzTc"],
-                    ycol=r[f"ycol{j}"], zrow=r["zrow"],
-                    wycol=r[f"wycol{j}"], wzrow=r["wzrow"],
-                    statics=self._corner_statics)
-
-            if self._y_sizes is None:
-                op = corner_op(JC, 0)
-            else:
-                parts, off = [], 0
-                for j, sj in enumerate(self._y_sizes):
-                    parts.append(corner_op(JC[:, :, off:off + sj], j))
-                    off += sj
-                op = ps.PallasStiffnessSplit(tuple(parts), self._y_sizes)
-            kw = {}
-            if getattr(self.model, "_pallas_precision", None) is not None:
-                kw["precision"] = self.model._pallas_precision
-            return ps.stiffness_apply_pallas(
-                op, x, interpret=self._pallas_interpret, **kw)
-        if self.impl == "pallas":
-            from fustpu.ops import pallas_stiffness as ps
-
-            n = self.mesh.degree + 1
-            Gfull = ctx["dist"][f"Gp{op_idx}"]
-            if self._y_sizes is None:
-                op = ps.PallasStiffness(G=Gfull,
-                                        Wy=ctx["repl"]["Wy0"],
-                                        WzT=ctx["repl"]["WzT"],
-                                        Dey=ctx["repl"]["Dey0"],
-                                        Dez=ctx["repl"]["Dez"],
-                                        D_host=self._D_host)
-            else:
-                # per-device y-slab partition: slice the (ncx, n, 6,
-                # ley, lez) tile along ley and run the fused kernel per
-                # slab (overlap-add handled by PallasStiffnessSplit)
-                parts, off = [], 0
-                for j, sj in enumerate(self._y_sizes):
-                    Gj = Gfull[:, :, :, off * n:(off + sj) * n]
-                    parts.append(ps.PallasStiffness(
-                        G=Gj, Wy=ctx["repl"][f"Wy{j}"],
-                        WzT=ctx["repl"]["WzT"],
-                        Dey=ctx["repl"][f"Dey{j}"],
-                        Dez=ctx["repl"]["Dez"], D_host=self._D_host))
-                    off += sj
-                op = ps.PallasStiffnessSplit(tuple(parts), self._y_sizes)
-            kw = {}
-            if getattr(self.model, "_pallas_precision", None) is not None:
-                kw["precision"] = self.model._pallas_precision
-            return ps.stiffness_apply_pallas(
-                op, x, interpret=self._pallas_interpret, **kw)
-        op = mm.MMStiffness(W=ctx["repl"]["W"], Dt=ctx["repl"]["Dt"],
-                            G=ctx["dist"]["G"])
+    def _local_stiffness(self, ctx, x, coeff_e=None):
+        op = mm.MMStiffness(D=ctx["repl"]["D"], G=ctx["dist"]["G"])
         return mm.stiffness_apply_mm(op, x, coeff_e=coeff_e)
-
-    def _local_pair_stiffness(self, ctx, u, v):
-        from fustpu.ops import pallas_stiffness as ps
-
-        op = ps.PallasStiffnessPair(
-            G=ctx["dist"]["Gp0"], Wy=ctx["repl"]["Wy0"],
-            WzT=ctx["repl"]["WzT"], Dey=ctx["repl"]["Dey0"],
-            Dez=ctx["repl"]["Dez"], C=ctx["dist"]["Cp"],
-            UzT=ctx["repl"]["UzT"], D_host=self._D_host)
-        kw = {}
-        if getattr(self.model, "_pallas_precision", None) is not None:
-            kw["precision"] = self.model._pallas_precision
-        return ps.stiffness_apply_pallas_pair(
-            op, u, v, interpret=self._pallas_interpret, **kw)
 
     def _local_rhs(self, ctx, t, u, v):
         d = ctx["dist"]
@@ -397,8 +167,6 @@ class ShardedModel:
         if self.kind == "linear":
             if model.uniform:
                 b = model.c2_scalar * self._local_stiffness(ctx, u)
-            elif self.impl == "pallas":
-                b = self._local_stiffness(ctx, u)   # coeff folded into G
             else:
                 b = self._local_stiffness(ctx, u, d["c2_e"])
             b = sh.halo_sum(b, self.S)
@@ -415,14 +183,11 @@ class ShardedModel:
         if model.uniform:
             b = self._local_stiffness(
                 ctx, model.c3_scalar * u + model.c4_scalar * v)
-        elif self.impl == "pallas" and self._pair:
-            b = self._local_pair_stiffness(ctx, u, v)
-        elif self.impl == "pallas":
-            b = (self._local_stiffness(ctx, u, op_idx=0)
-                 + self._local_stiffness(ctx, v, op_idx=1))
         else:
-            b = (self._local_stiffness(ctx, u, d["c3_e"])
-                 + self._local_stiffness(ctx, v, d["c4_e"]))
+            # one contraction pass for both terms (see
+            # spectral_mm.stiffness_apply_mm_pair)
+            op = mm.MMStiffness(D=ctx["repl"]["D"], G=d["G"])
+            b = mm.stiffness_apply_mm_pair(op, u, v, d["c3_e"], d["c4_e"])
         b = sh.halo_sum(b, self.S)
         b = b - (v * v) * d["mvec2"]
         (g_c, g_s), (dg_c, dg_s) = sources.westervelt_source_coeffs(
@@ -491,9 +256,10 @@ class ShardedModel:
     def solve(self, state: timestepping.RKState, dt: float, num_steps: int,
               tf=None, probe=None):
         """Run num_steps RK4 steps; the whole scan executes inside one
-        shard_map (one XLA program, collectives over ICI).  Same API as
-        the single-device models: returns (RKState, ys); `probe` (built by
-        `probe_fn`) records per-step traces, replicated on every device."""
+        shard_map (one XLA program, collectives between devices).  Same
+        API as the single-device models: returns (RKState, ys); `probe`
+        (built by `probe_fn`) records per-step traces, replicated on every
+        device."""
         key = ("solve", num_steps, tf is not None, probe)
         if key not in self._solve_cache:
             vec = P(*sh.AXES)

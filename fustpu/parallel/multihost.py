@@ -1,15 +1,15 @@
-"""Multi-host (multi-process) distribution over DCN + ICI.
+"""Multi-host (multi-process) distribution.
 
 The reference runs on any number of MPI ranks across nodes
 (/root/reference/cuda/scatterer.py:104-277, CUDA-aware Isend/Irecv).  The
 JAX-native equivalent: `jax.distributed` forms the process group, every
 process runs the same SPMD program, and the SAME shard_map solve works
-unchanged — XLA routes the halo ppermute over ICI within a host and over
-DCN across hosts.  What multi-host changes is only (a) initialization,
-(b) how global arrays are materialised (per-process addressable shards),
-and (c) device ordering: the device grid must keep intra-host (ICI) axes
-innermost so cross-host traffic rides the partition axis with the fewest
-exchanged planes.
+unchanged — XLA routes the halo ppermute over the links within a host and
+over the network across hosts.  What multi-host changes is only (a)
+initialization, (b) how global arrays are materialised (per-process
+addressable shards), and (c) device ordering: the device grid must keep
+intra-host axes innermost so cross-host traffic rides the partition axis
+with the fewest exchanged planes.
 
 Run `python -m fustpu.parallel.multihost --nprocs 2 --devices-per-proc 4`
 to self-spawn a 2-process x 4-virtual-CPU-device check (the CI analogue of
@@ -33,8 +33,9 @@ def initialize(coordinator: str, num_processes: int, process_id: int):
 
 
 def dcn_device_grid(shape: tuple[int, int, int], dcn_axis: int = 0):
-    """DeviceGrid over all processes' devices with the process (DCN)
-    dimension spanning `dcn_axis` blocks-of-hosts and ICI axes innermost:
+    """DeviceGrid over all processes' devices with the process (cross-host
+    network) dimension spanning `dcn_axis` blocks-of-hosts and intra-host
+    axes innermost:
     devices are ordered (process, local) so a contiguous reshape keeps
     each host's devices adjacent along the leading axis."""
     import jax
@@ -46,7 +47,7 @@ def dcn_device_grid(shape: tuple[int, int, int], dcn_axis: int = 0):
     if len(devs) < n:
         raise ValueError(f"need {n} devices, have {len(devs)}")
     if dcn_axis != 0:
-        # fill the DCN axis slowest: reshape with it leading, then move
+        # fill the cross-host axis slowest: reshape with it leading, then move
         # each source axis k (holding shape[order[k]]) to position order[k]
         order = [dcn_axis] + [a for a in range(3) if a != dcn_axis]
         perm_shape = tuple(shape[a] for a in order)
@@ -200,7 +201,7 @@ def _worker(coordinator: str, nprocs: int, pid: int, devices: int,
         assert errs < 1e-12, errs
 
     _hb("phase 2 + snapshots done")
-    # ---- phase 3: NON-PRISMATIC mesh, per-device gather/scatter engine,
+    # ---- phase 3: NON-PRISMATIC mesh, per-device indexed path,
     # heterogeneous Westervelt pair, traced global-norm probe ------------
     from fustpu.mesh.extruded import as_extruded
     from fustpu.mesh.unstructured import from_box
@@ -219,15 +220,12 @@ def _worker(coordinator: str, nprocs: int, pid: int, devices: int,
                              ext[cen[:, 0] >= 1e-9], dtype=jnp.float64)
     dt3, _ = model3.cfl_dt(0.4)
     _hb("phase 3: non-prismatic model built")
-    # 2 steps: the engine runs in interpret mode here (pure-Python per
-    # tile), so steps are the dominant cost; step-to-step carry plus all
-    # 4 RK stage couplings are already exercised at 2
+    # 2 steps: step-to-step carry plus all 4 RK stage couplings
     nsteps3 = 2
     ref3, _ = model3.solve(model3.init_state(), dt3, nsteps3)
-    sm3 = shard_unstructured(model3, num_devices=nprocs * devices,
-                             stiffness_impl="indexed_engine")
+    sm3 = shard_unstructured(model3, num_devices=nprocs * devices)
     assert not isinstance(sm3, ExtrudedShardedModel)
-    _hb("phase 3: ref solved; sharded engine solve")
+    _hb("phase 3: ref solved; sharded indexed solve")
     ds3, ys3 = sm3.solve(sm3.init_state(), dt3, nsteps3,
                          probe=sm3.norm_probe())
     ref_norm3 = np.linalg.norm(np.asarray(ref3.u).ravel())
@@ -236,7 +234,7 @@ def _worker(coordinator: str, nprocs: int, pid: int, devices: int,
 
     print(f"multihost worker {pid}/{nprocs} OK "
           f"({checked} local shards verified; imported extruded "
-          f"{checked2} shards; non-prismatic engine norm ok)",
+          f"{checked2} shards; non-prismatic indexed norm ok)",
           flush=True)
 
 

@@ -6,13 +6,13 @@ unpack kernels implement scatter_forward (owner->ghost copy) and
 scatter_reverse (ghost->owner add) (/root/reference/cuda/scatterer.py,
 cuda/utils.py:8-78).
 
-TPU-native design: the box is partitioned into a (Sx, Sy, Sz) grid of
+Design: the box is partitioned into a (Sx, Sy, Sz) grid of
 sub-boxes mapped onto a `jax.sharding.Mesh` with axes ('x','y','z').  Each
 device holds its sub-box's node block *including* the single shared plane
 with each neighbour (nodes on a cut plane are stored on both sides).  After
 local assembly, a "halo sum" makes shared planes globally summed AND
 consistent on both owners in one shot: along each partitioned axis the
-boundary planes are exchanged with `lax.ppermute` over ICI and added.
+boundary planes are exchanged with `lax.ppermute` and added.
 Because every device then holds identical values on its shared planes, the
 reference's separate scatter_forward after field updates is unnecessary —
 axpy/copy/divide preserve consistency.  One exchange per assembly instead

@@ -2,8 +2,8 @@
 DOLFINx `common.Timer` scopes and `list_timings` wall/average table
 (/root/reference/numba-cpu/demo_linear_box.py:302,486;
 cpp/common/Linear.hpp:171-176), plus a jax.profiler trace helper for
-source-level TPU profiling (the reference compiles CUDA kernels with
-lineinfo for NSight, cuda/operators.py:87).
+device profiling (the reference compiles CUDA kernels with lineinfo for
+NSight, cuda/operators.py:87).
 """
 
 from __future__ import annotations

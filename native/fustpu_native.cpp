@@ -1,6 +1,6 @@
 // fustpu native runtime: setup-time mesh/geometry machinery in C++.
 //
-// TPU-native counterpart of the reference's native tier
+// The counterpart of the reference's native tier
 // (/root/reference/cpp/common/precompute.hpp, spectral_op.hpp ctors,
 // permute.hpp): everything that runs on the host around the XLA compute
 // path — geometry-factor precomputation over millions of cells, dofmap and
@@ -10,7 +10,8 @@
 // implementation in fustpu/ops/precompute.py (same f64 arithmetic order per
 // quadrature point).
 //
-// Build: make -C native   (g++ -O3 -march=native -fopenmp, no deps)
+// Build: make -C native   (g++ -O3 -march=native, -fopenmp where the
+// toolchain has it, no deps)
 
 #include <cmath>
 #include <cstdint>

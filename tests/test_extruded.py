@@ -156,25 +156,6 @@ def test_detection_any_axis():
     assert err < 1e-12, err
 
 
-def test_extruded_bf16x3_accuracy():
-    """The f32 default precision of the extruded apply is the bf16x3
-    decomposition (as for the fused kernel): operator rel-err vs the f64
-    reference must stay ~1e-5 (only the lo*lo term is dropped)."""
-    mex, _ = _cyl()
-    d64 = Discretization(mex, jnp.float64)
-    d32 = Discretization(mex, jnp.float32)
-    rng = np.random.default_rng(0)
-    x64 = rng.standard_normal(mex.ndofs)
-    y64 = ops.stiffness_apply_extruded(jnp.asarray(x64), d64.extruded_op,
-                                       mex.ndofs)
-    y32 = ops.stiffness_apply_extruded(
-        jnp.asarray(x64, jnp.float32), d32.extruded_op, mex.ndofs,
-        precision="bf16x3")
-    err = (np.linalg.norm(np.asarray(y32, np.float64) - np.asarray(y64))
-           / np.linalg.norm(np.asarray(y64)))
-    assert err < 2e-5, err
-
-
 def test_detection_ignores_orphan_vertices():
     """Imported files can carry nodes referenced only by point/line
     elements; they must not break the vertex-column structure."""
@@ -185,139 +166,6 @@ def test_detection_ignores_orphan_vertices():
     verts2 = np.vstack([um.vertices, [[9.9, 9.9, 9.9], [1.2, 4.5, 6.7]]])
     ex = as_extruded(dataclasses.replace(um, vertices=verts2))
     assert ex is not None
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel for the extruded layout (fustpu.ops.pallas_extruded)
-# — interpret mode on CPU, gated against the XLA factorized path (itself
-# oracle-gated above) at the reference's 1e-12 f64 tolerance.
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("P", [2, 3, 4])
-def test_pallas_extruded_matches_xla(P):
-    from fustpu.ops import pallas_extruded as pex
-
-    mex, _ = _cyl(P=P)
-    d = Discretization(mex, jnp.float64)
-    rng = np.random.default_rng(P)
-    x = jnp.asarray(rng.standard_normal(mex.ndofs))
-    coeff = rng.uniform(0.5, 2.0, mex.num_cells)
-    ce = ops.expand_coeff_extruded(mex, coeff, jnp.float64)
-    y1 = ops.stiffness_apply_extruded(x, d.extruded_op, mex.ndofs,
-                                      coeff_e=ce)
-    op = pex.build_extruded(mex, d._G_host, d._D_host, jnp.float64,
-                            coeff=coeff)
-    y2 = pex.stiffness_apply_extruded_pallas(x, op, mex.ndofs,
-                                             interpret=True,
-                                             precision=pex._HI)
-    err = float(jnp.linalg.norm(y2 - y1) / jnp.linalg.norm(y1))
-    assert err < 1e-12, err
-
-
-def test_pallas_extruded_pair_matches_xla():
-    from fustpu.ops import pallas_extruded as pex
-
-    mex, _ = _cyl(P=3)
-    d = Discretization(mex, jnp.float64)
-    rng = np.random.default_rng(7)
-    x1 = jnp.asarray(rng.standard_normal(mex.ndofs))
-    x2 = jnp.asarray(rng.standard_normal(mex.ndofs))
-    c1 = rng.uniform(0.5, 2.0, mex.num_cells)
-    c2 = rng.uniform(-1.5, -0.5, mex.num_cells)
-    ce1 = ops.expand_coeff_extruded(mex, c1, jnp.float64)
-    ce2 = ops.expand_coeff_extruded(mex, c2, jnp.float64)
-    yr = ops.stiffness_apply_extruded_pair(x1, x2, d.extruded_op,
-                                           mex.ndofs, ce1, ce2)
-    opp = pex.build_extruded_pair(mex, d._G_host, d._D_host, jnp.float64,
-                                  c1, c2)
-    yp = pex.stiffness_apply_extruded_pallas_pair(
-        x1, x2, opp, mex.ndofs, interpret=True, precision=pex._HI)
-    err = float(jnp.linalg.norm(yp - yr) / jnp.linalg.norm(yr))
-    assert err < 1e-12, err
-
-
-def test_pallas_extruded_bf16x3_accuracy():
-    """Production f32/bf16x3 configuration within the validated operator
-    error budget (same scheme as the structured kernel)."""
-    from fustpu.ops import pallas_extruded as pex
-
-    mex, _ = _cyl(P=4)
-    d = Discretization(mex, jnp.float64)
-    rng = np.random.default_rng(9)
-    x = jnp.asarray(rng.standard_normal(mex.ndofs))
-    coeff = rng.uniform(0.5, 2.0, mex.num_cells)
-    ce = ops.expand_coeff_extruded(mex, coeff, jnp.float64)
-    y1 = np.asarray(ops.stiffness_apply_extruded(x, d.extruded_op,
-                                                 mex.ndofs, coeff_e=ce))
-    op32 = pex.build_extruded(mex, d._G_host, d._D_host, jnp.float32,
-                              coeff=coeff)
-    y2 = np.asarray(pex.stiffness_apply_extruded_pallas(
-        jnp.asarray(x, jnp.float32), op32, mex.ndofs, interpret=True,
-        precision="bf16x3")).astype(np.float64)
-    err = np.linalg.norm(y2 - y1) / np.linalg.norm(y1)
-    assert err < 5e-5, err
-
-
-def test_pallas_extruded_multiblock():
-    """More stacks than one stack-batch (ns > S forced small via a
-    build-level repack) — exercises the outer grid dimension and the
-    zero-G stack padding."""
-    from fustpu.ops import pallas_extruded as pex
-
-    mex, _ = _cyl(P=2, nz=3)
-    d = Discretization(mex, jnp.float64)
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.standard_normal(mex.ndofs))
-    y1 = ops.stiffness_apply_extruded(x, d.extruded_op, mex.ndofs)
-    op = pex.build_extruded(mex, d._G_host, d._D_host, jnp.float64)
-    # force S=8 so the 33 stacks span 5 blocks (with 7 padded stacks)
-    Gs = pex._stack_G(mex, d._G_host)
-    Gt, rows_t, _ = pex._pack(Gs, mex.rows2d, 8)
-    op8 = pex.PallasExtruded(
-        Gt=jnp.asarray(Gt, jnp.float64), rows=jnp.asarray(rows_t),
-        WzT=op.WzT, Dz=op.Dz, statics=(op.statics[0], 8))
-    y2 = pex.stiffness_apply_extruded_pallas(x, op8, mex.ndofs,
-                                             interpret=True,
-                                             precision=pex._HI)
-    err = float(jnp.linalg.norm(y2 - y1) / jnp.linalg.norm(y1))
-    assert err < 1e-12, err
-
-
-@pytest.mark.parametrize("cls,hetero", [
-    (LinearWaveModel, False), (LinearWaveModel, True),
-    (WesterveltModel, False), (WesterveltModel, True)])
-def test_model_extruded_pallas_matches_xla(cls, hetero):
-    """Model-level stiffness_impl='extruded_pallas' (the TPU production
-    path for imported meshes, interpret mode here) == the XLA extruded
-    path over 10 RK4 steps."""
-    mex, _ = _cyl()
-    if hetero:
-        zc = np.array([mex.vertices[c].mean(axis=0)[2]
-                       for c in mex.cells])
-        c_cells = np.where(zc < 0.01, 1500.0, 1650.0)
-        mat = Material(sound_speed=c_cells, density=1000.0,
-                       nonlinearity=3.5, attenuation_dB=0.3)
-    else:
-        mat = Material(sound_speed=1500.0, density=1000.0,
-                       nonlinearity=3.5, attenuation_dB=0.3)
-    if cls is LinearWaveModel and hetero:
-        # heterogeneous linear folds the coefficient into the stream
-        pass
-    src = Source(frequency=0.5e6, amplitude=1e5)
-    outs = []
-    for impl in ("extruded", "extruded_pallas"):
-        m = cls(mex, mat, src, mex.boundary_facets(1),
-                mex.boundary_facets(2), dtype=jnp.float64,
-                stiffness_impl=impl)
-        assert m.impl == impl
-        if impl == "extruded_pallas":
-            assert m._ext_interpret  # CPU backend here
-        dt, _ = m.cfl_dt(0.4)
-        s, _ = m.solve(m.init_state(), dt, 10)
-        outs.append(np.asarray(s.u).ravel())
-    err = (np.linalg.norm(outs[0] - outs[1])
-           / max(np.linalg.norm(outs[0]), 1e-300))
-    assert err < 1e-11, err
 
 
 def test_curved_hex27_prismatic_detects_and_matches():
@@ -379,134 +227,3 @@ def test_curved_hex27_prismatic_detects_and_matches():
                                      np.asarray(x), ex.ndofs)
     err = np.linalg.norm(np.asarray(y2) - y_ref) / np.linalg.norm(y_ref)
     assert err < 1e-12, err
-
-
-# ---------------------------------------------------------------------------
-# Corner-streamed (memory-capacity) extruded kernel: geometry travels as
-# 37 trilinear Jacobian monomials per CELL and adj(J)/det is evaluated
-# in-kernel — the mode for >10^8-DOF imported meshes (VERDICT r4 #4;
-# reference analogue: the 10^8+-DOF MPI configs, BASELINE.md)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("P", [2, 4])
-def test_pallas_extruded_corner_matches_xla(P):
-    from fustpu.ops import pallas_extruded as pex
-
-    mex, _ = _cyl(P=P)
-    d = Discretization(mex, jnp.float64)
-    rng = np.random.default_rng(P)
-    x = jnp.asarray(rng.standard_normal(mex.ndofs))
-    coeff = rng.uniform(0.5, 2.0, mex.num_cells)
-    ce = ops.expand_coeff_extruded(mex, coeff, jnp.float64)
-    y1 = ops.stiffness_apply_extruded(x, d.extruded_op, mex.ndofs,
-                                      coeff_e=ce)
-    op = pex.build_extruded_corner(mex, d._D_host, jnp.float64,
-                                   coeff=coeff)
-    y2 = pex.stiffness_apply_extruded_pallas(x, op, mex.ndofs,
-                                             interpret=True,
-                                             precision=pex._HI)
-    err = float(jnp.linalg.norm(y2 - y1) / jnp.linalg.norm(y1))
-    assert err < 1e-12, err
-
-
-def test_pallas_extruded_corner_pair_matches_xla():
-    from fustpu.ops import pallas_extruded as pex
-
-    mex, _ = _cyl(P=3)
-    d = Discretization(mex, jnp.float64)
-    rng = np.random.default_rng(7)
-    x1 = jnp.asarray(rng.standard_normal(mex.ndofs))
-    x2 = jnp.asarray(rng.standard_normal(mex.ndofs))
-    c1 = rng.uniform(0.5, 2.0, mex.num_cells)
-    c2 = rng.uniform(-1.5, -0.5, mex.num_cells)
-    ce1 = ops.expand_coeff_extruded(mex, c1, jnp.float64)
-    ce2 = ops.expand_coeff_extruded(mex, c2, jnp.float64)
-    yr = ops.stiffness_apply_extruded_pair(x1, x2, d.extruded_op,
-                                           mex.ndofs, ce1, ce2)
-    opp = pex.build_extruded_corner(mex, d._D_host, jnp.float64,
-                                    c1_cells=c1, c2_cells=c2)
-    yp = pex.stiffness_apply_extruded_pallas_pair(
-        x1, x2, opp, mex.ndofs, interpret=True, precision=pex._HI)
-    err = float(jnp.linalg.norm(yp - yr) / jnp.linalg.norm(yr))
-    assert err < 1e-12, err
-
-
-def test_model_extruded_corner_impl():
-    """stiffness_impl='pallas_corner' on an extruded import resolves to
-    the capacity kernel and solves identically (hex27 prisms route
-    through the 163-channel quadratic stream — see
-    test_pallas_extruded_corner_hex27)."""
-    from fustpu.models.westervelt import WesterveltModel
-
-    mex, _ = _cyl()
-    mat = Material(sound_speed=1500.0, density=1000.0, nonlinearity=3.5,
-                   attenuation_dB=0.3)
-    src = Source(frequency=0.5e6, amplitude=1.0e5)
-    args = (mex, mat, src, mex.boundary_facets(1), mex.boundary_facets(2))
-    ref = WesterveltModel(*args, dtype=jnp.float64,
-                          stiffness_impl="extruded")
-    m = WesterveltModel(*args, dtype=jnp.float64,
-                        stiffness_impl="pallas_corner")
-    assert m.impl == "extruded_pallas" and m._ext_corner
-    dt, _ = m.cfl_dt(0.4)
-    s0, _ = ref.solve(ref.init_state(), dt, 10)
-    s1, _ = m.solve(m.init_state(), dt, 10)
-    err = float(jnp.linalg.norm(s1.u - s0.u) / jnp.linalg.norm(s0.u))
-    assert err < 1e-12, err
-
-
-def test_pallas_extruded_corner_hex27():
-    """Curved (triquadratic hex27) PRISMS run the corner capacity kernel
-    through the 163-channel quadratic monomial stream (VERDICT r4 #4's
-    'quadratic-map equivalent') — gated against the G-stream extruded
-    apply on genuinely curved geometry."""
-    import dataclasses
-
-    from fustpu.elements.hex import hex8_tabulate
-    from fustpu.mesh.unstructured import from_box
-    from fustpu.ops import pallas_extruded as pex
-
-    lat3 = np.array([[i / 2, j / 2, k / 2] for i in range(3)
-                     for j in range(3) for k in range(3)])
-
-    def phi(x):
-        x = np.asarray(x, np.float64)
-        out = x.copy()
-        out[..., 0] = x[..., 0] + 0.04 * np.sin(1.3 * x[..., 1])
-        out[..., 1] = x[..., 1] + 0.05 * np.sin(1.1 * x[..., 0] + 0.4)
-        out[..., 2] = x[..., 2] * (1.0 + 0.1 * x[..., 2]) \
-            + 0.06 * np.sin(1.7 * x[..., 0] + 0.5 * x[..., 1])
-        return out
-
-    # (2, 2, 3): smallest prismatic stack with an interior layer — the
-    # 163-channel interpret apply scales with cell count, the gate doesn't
-    bm = build_box_mesh((2, 2, 3), 3)
-    um = from_box(bm, shuffle_seed=11)
-    vals, _ = hex8_tabulate(lat3)
-    gl = np.einsum("qv,cvd->cqd", vals, um.vertices[um.cells])
-    curved = as_extruded(dataclasses.replace(
-        um, vertices=phi(um.vertices), geom_nodes=phi(gl)))
-    assert curved is not None and curved.geom_nodes is not None
-    assert pex.corner_stream(curved).shape[2] == 163   # 162 J + coeff
-
-    d = Discretization(curved, jnp.float64)
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.standard_normal(curved.ndofs))
-    coeff = rng.uniform(0.5, 2.0, curved.num_cells)
-    from fustpu.ops import operators as ops2
-
-    ce = ops2.expand_coeff_extruded(curved, coeff, jnp.float64)
-    y1 = ops2.stiffness_apply_extruded(x, d.extruded_op, curved.ndofs,
-                                       coeff_e=ce)
-    cop = pex.build_extruded_corner(curved, d._D_host, jnp.float64,
-                                    coeff=coeff)
-    y2 = pex.stiffness_apply_extruded_pallas(x, cop, curved.ndofs,
-                                             interpret=True,
-                                             precision=pex._HI)
-    err = float(jnp.linalg.norm(y2 - y1) / jnp.linalg.norm(y1))
-    assert err < 1e-12, err
-
-    from fustpu.models.discretization import resolve_stiffness_impl
-
-    assert resolve_stiffness_impl("pallas_corner", d) == \
-        "extruded_pallas_corner"

@@ -5,10 +5,11 @@ The dense oracle is O(n^9) per cell and impractical above P~6, so high
 degrees are gated by (a) an EXACT analytic patch test — on an affine box
 the GLL rule (2P-1 exact) integrates v^T A u = int grad u . grad v
 exactly for tensor polynomials of degree <= P, so the matrix-free apply
-must match closed-form 1D integrals to roundoff — and (b) cross-path
-consistency between the three independent operator formulations
-(structured einsum, matmul-form, explicit-dofmap indexed) on a perturbed
-mesh, plus the fused Pallas kernel in interpret mode."""
+must match closed-form 1D integrals to roundoff, on every stiffness path
+— and (b) cross-path consistency between the independent operator
+formulations (the 'mm' structured apply, the einsum reference on the
+structured layout, the explicit-dofmap indexed apply) on a perturbed
+mesh."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,6 @@ import pytest
 from fustpu.elements.hex import HexElement
 from fustpu.mesh.box import build_box_mesh
 from fustpu.ops import operators as ops
-from fustpu.ops import pallas_stiffness as ps
 from fustpu.ops import precompute as pre
 from fustpu.ops import spectral_mm as mm
 
@@ -71,8 +71,8 @@ def test_patch_test_exact_energy(P):
     pytest.param(9, marks=pytest.mark.slow),
     pytest.param(10, marks=pytest.mark.slow)])
 def test_cross_path_consistency(P):
-    """mm vs structured einsum vs indexed on a perturbed mesh: three
-    independent formulations agree to roundoff at high degree."""
+    """mm vs the structured einsum reference vs indexed on a perturbed
+    mesh: three independent codes agree to roundoff at high degree."""
     mesh = build_box_mesh((2, 2, 2), P, hi=(1.0, 0.8, 1.3),
                           perturb=0.15, seed=P)
     elem = HexElement(P)
@@ -100,42 +100,36 @@ def test_cross_path_consistency(P):
         assert err < 1e-12, err
 
 
-@pytest.mark.parametrize("P", [7, 8])
-def test_pallas_high_degree(P):
-    """Fused kernel (interpret mode) at high degree vs the mm path."""
-    mesh = build_box_mesh((2, 2, 2), P, perturb=0.1, seed=P)
-    elem = HexElement(P)
-    _, G = pre.cell_geometry_factors(mesh)
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(rng.standard_normal(mesh.grid_shape), jnp.float64)
-    op = mm.build_stiffness(mesh.nc, P, elem.deriv_1d, G, jnp.float64)
-    y_ref = np.asarray(mm.stiffness_apply_mm(op, x))
-    opp = ps.build(mesh.nc, P, elem.deriv_1d, G, jnp.float64)
-    y = np.asarray(ps.stiffness_apply_pallas(op=opp, x=x, interpret=True,
-                                             precision=ps._HI))
-    err = np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref)
-    assert err < 1e-12, err
+@pytest.mark.parametrize("P", [6, 7, 8])
+@pytest.mark.parametrize("path", ["extruded", "indexed"])
+def test_patch_test_unstructured_paths(path, P):
+    """The analytic patch test on the imported-mesh paths: the box as a
+    prismatic ExtrudedHexMesh ('extruded') and as a plain
+    UnstructuredHexMesh with shuffled, rotated cells ('indexed')."""
+    from fustpu.mesh.extruded import as_extruded
+    from fustpu.mesh.unstructured import from_box
+    from fustpu.models.discretization import Discretization, stiffness_path
 
-
-def test_pallas_fits_high_degree_table():
-    """VMEM feasibility (recorded in BENCH_NOTES): the single-slab kernel
-    fits y-z extents up to ~20 cells at P=7, 16 at P=8..9, 12 at P=10;
-    larger y extents take the y-partitioned operator, and only an
-    oversized z extent falls back to the matmul path."""
-    table = {7: 20, 8: 16, 9: 16, 10: 12}
-    for P, nc in table.items():
-        n = P + 1
-        assert ps.pallas_fits(n, nc, nc, nc * P + 1), P
-    assert not ps.pallas_fits(11, 20, 20, 20 * 10 + 1)   # P=10 oversize
-    # a 64x64 y-z extent at P=4 exceeds the single-slab budget but is
-    # covered by the y-partitioned operator (2+ slabs)
-    assert not ps.pallas_fits(5, 64, 64, 64 * 4 + 1)
-    parts = ps.pick_y_parts(5, 64, 64, 64 * 4 + 1)
-    assert parts is not None and len(parts) >= 2 and sum(parts) == 64
-    # an oversized z extent cannot be y-partitioned away -> mm fallback
-    assert ps.pick_y_parts(5, 8, 4096, 4096 * 4 + 1) is None
-    from fustpu.models.discretization import Discretization
-    big = build_box_mesh((4, 64, 64), 4)
-    # eligible via the y-partitioned operator ('auto' still resolves to
-    # mm on the CPU test backend; TPU backends pick pallas)
-    assert Discretization(big).pallas_fits()
+    h = 1.3
+    bm = build_box_mesh((2, 2, 2), P, hi=(h, h, h))
+    um = from_box(bm, shuffle_seed=11)
+    mesh = as_extruded(um) if path == "extruded" else um
+    assert stiffness_path(mesh) == path
+    rng = np.random.default_rng(P)
+    cs = ([rng.standard_normal(P + 1) for _ in range(3)]
+          + [rng.standard_normal(P) for _ in range(3)])
+    xyz = mesh.node_coords
+    poly = lambda c: (np.polyval(c[0], xyz[:, 0]) * np.polyval(c[1], xyz[:, 1])
+                      * np.polyval(c[2], xyz[:, 2]))
+    u, v = poly(cs[:3]), poly(cs[3:])
+    disc = Discretization(mesh, jnp.float64)
+    if path == "extruded":
+        Au = ops.stiffness_apply_extruded(jnp.asarray(u), disc.extruded_op,
+                                          mesh.ndofs)
+    else:
+        G, dm, D = disc.indexed_op
+        Au = ops.stiffness_apply_indexed(jnp.asarray(u), G, None, dm, D,
+                                         mesh.ndofs)
+    got = float(np.vdot(v, np.asarray(Au)))
+    want = _exact_stiffness_bilinear(*cs, hi=h)
+    assert abs(got - want) / abs(want) < 1e-11, (got, want)

@@ -265,32 +265,3 @@ def test_tf_clamp_no_backward_integration():
     assert abs(float(s20.t) - tf) < 1e-15 * 100
     assert np.array_equal(np.asarray(s6.u), np.asarray(s20.u))
     assert np.array_equal(np.asarray(s6.v), np.asarray(s20.v))
-
-
-def test_westervelt_pair_vmem_fallback(monkeypatch):
-    """When the pair kernel's VMEM margin doesn't fit, the heterogeneous
-    model must fall back to the two-operator route, not fail at build."""
-    import numpy as np
-
-    from fustpu.ops import pallas_stiffness as ps
-
-    orig = ps.pallas_fits
-
-    def tight(n, ncy, ncz, gz, corner=False, pair=False):
-        if pair:
-            return False
-        return orig(n, ncy, ncz, gz, corner=corner)
-
-    monkeypatch.setattr(ps, "pallas_fits", tight)
-    nc = (4, 3, 2)
-    mesh = build_box_mesh(nc, 2, hi=(0.006,) * 3)
-    cs = np.full(nc, 1480.0)
-    cs[2:] = 1600.0
-    mat = Material(sound_speed=cs, density=1000.0, nonlinearity=3.5,
-                   attenuation_dB=0.2)
-    src = Source(frequency=1.1e6, amplitude=1.0e5)
-    m = WesterveltModel(mesh, mat, src, mesh.boundary_facets("x-"),
-                        mesh.all_boundary_facets(), dtype=jnp.float64,
-                        stiffness_impl="pallas")
-    assert not getattr(m, "_pair", True)
-    assert isinstance(m._stiff_op, tuple) and len(m._stiff_op) == 2

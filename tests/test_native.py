@@ -1,7 +1,11 @@
 """Native C++ runtime vs numpy reference equivalence (and availability).
 
-The native library is built by `make -C native`; tests skip gracefully when
-it isn't (the package has full numpy fallbacks)."""
+The native library is built from source by `make -C native` (it is never
+committed); the module builds it first and skips when no compiler can
+(the package has full numpy fallbacks)."""
+
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -10,8 +14,16 @@ from fustpu import native_bindings as nb
 from fustpu.mesh.box import build_box_mesh
 from fustpu.ops import precompute as pre
 
-pytestmark = pytest.mark.skipif(not nb.available(),
-                                reason="native library not built")
+
+@pytest.fixture(scope="module", autouse=True)
+def native_lib():
+    """Build and load the library; skip the module if it cannot be built."""
+    native = Path(__file__).resolve().parent.parent / "native"
+    r = subprocess.run(["make", "-C", str(native)], capture_output=True,
+                       text=True)
+    nb._TRIED, nb._LIB = False, None      # retry the load after the build
+    if r.returncode != 0 or not nb.available():
+        pytest.skip(f"native library not built: {r.stderr[-300:]}")
 
 
 @pytest.fixture(scope="module")

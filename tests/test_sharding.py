@@ -73,23 +73,6 @@ def test_halo_sum_plane_consistency():
     assert np.array_equal(kv[0, 0, 0][:, -1, :], kv[0, 1, 0][:, 0, :])
 
 
-def test_sharded_pallas_matches_single():
-    """Per-device fused Pallas kernel (interpret mode on CPU) inside
-    shard_map matches the single-device solve."""
-    model, mat, src = _build(WesterveltModel, nc=(4, 4, 4), degree=2)
-    grid = sh.DeviceGrid.create((2, 2, 1))
-    smodel = ShardedModel(model, grid, stiffness_impl="pallas")
-    assert smodel.impl == "pallas"
-    dt, _ = model.cfl_dt(0.4)
-    nsteps = 3
-    final, _ = model.solve(model.init_state(), dt, nsteps)
-    ds, _ = smodel.solve(smodel.init_state(), dt, nsteps)
-    u = smodel.collect(ds.u)
-    err = (np.linalg.norm(u - np.asarray(final.u))
-           / np.linalg.norm(np.asarray(final.u)))
-    assert err < 1e-12, err
-
-
 def test_sharded_probe_matches_single():
     """Per-step hydrophone traces recorded inside the sharded scan match
     the single-device traces to roundoff (each probe's interpolation
@@ -195,6 +178,7 @@ def test_sharded_heterogeneous_matches_single():
 # /root/reference/cuda/utils.py:8-78, cuda/scatterer.py:104-277)
 # ---------------------------------------------------------------------------
 
+
 def _cyl_model(model_cls, P=3):
     from fustpu.mesh import msh_io
     from fustpu.mesh.shapes import cylinder_mesh
@@ -278,49 +262,27 @@ def test_sharded_unstructured_heterogeneous():
 
 
 @pytest.mark.parametrize("S", [(2, 2, 2), (3, 2, 1)])
-@pytest.mark.parametrize("impl", ["mm", "pallas"])
+@pytest.mark.parametrize("impl", ["mm"])
 def test_sharded_nondivisible_cells(S, impl):
     """(7,5,3) cells on non-dividing device grids: ghost-padded equal
     blocks (zero-stiffness cells) make any mesh run on any device count,
     like `mpirun -n k` (VERDICT r2 item 6)."""
     model, *_ = _build(WesterveltModel, nc=(7, 5, 3), degree=3)
+    model = WesterveltModel(model.mesh, model.material, model.source,
+                            model.mesh.boundary_facets("x-"),
+                            model.mesh.all_boundary_facets(),
+                            dtype=jnp.float64, stiffness_impl=impl)
     dt, _ = model.cfl_dt(0.4)
     ref, _ = model.solve(model.init_state(), dt, 12)
-    sm = ShardedModel(model, sh.DeviceGrid.create(S), stiffness_impl=impl)
-    assert any(sm.cell_pad)
+    sm = ShardedModel(model, sh.DeviceGrid.create(S))
+    assert sm.impl == impl and any(sm.cell_pad)
     ss, _ = sm.solve(sm.init_state(), dt, 12)
     err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u))
            / np.linalg.norm(np.asarray(ref.u)))
     assert err < 1e-12, err
 
 
-def test_sharded_pallas_y_split(monkeypatch):
-    """When the per-device block exceeds the single-slab VMEM budget the
-    ShardedModel must run the y-partitioned fused kernel, NOT silently
-    fall back to mm (VERDICT r2 item 5).  The budget is forced small via
-    pick_y_parts so the case is exercised on the CPU test mesh."""
-    from fustpu.ops import pallas_stiffness as ps
-
-    orig = ps.pick_y_parts
-
-    def forced(n, ncy, ncz, gz, max_parts=16, corner=False):
-        return [2, 1] if ncy == 3 else orig(n, ncy, ncz, gz, max_parts,
-                                            corner)
-
-    monkeypatch.setattr(ps, "pick_y_parts", forced)
-    model, *_ = _build(LinearWaveModel, nc=(4, 6, 4), degree=2)
-    dt, _ = model.cfl_dt(0.4)
-    ref, _ = model.solve(model.init_state(), dt, 10)
-    sm = ShardedModel(model, sh.DeviceGrid.create((1, 2, 1)),
-                      stiffness_impl="pallas")
-    assert sm.impl == "pallas" and sm._y_sizes == (2, 1)
-    ss, _ = sm.solve(sm.init_state(), dt, 10)
-    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u))
-           / np.linalg.norm(np.asarray(ref.u)))
-    assert err < 1e-12, err
-
-
-@pytest.mark.parametrize("k", [8, 3])
+@pytest.mark.parametrize("k", [8, 3, 5, 2])
 def test_sharded_nonprismatic_unstructured(k):
     """GENERAL unstructured sharding: a fully-3D-perturbed shuffled mesh
     (no extrusion exists) distributes via RCB cell partition + shared-DOF
@@ -353,53 +315,6 @@ def test_sharded_nonprismatic_unstructured(k):
     assert err < 1e-12, err
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_sharded_nonprismatic_engine(fused):
-    """The per-device gather/scatter ENGINE (windowed one-hot MXU path,
-    interpret mode here) inside IndexedShardedModel == single-device at
-    1e-12 — the TPU production configuration for sharded non-prismatic
-    meshes, including ragged per-device cell counts (dead-id padding).
-    fused=True: the single-kernel fused form (stacked cell-row plans);
-    fused=False: the stacked 3-kernel plans with padded spill
-    entries."""
-    from fustpu.mesh.extruded import as_extruded
-    from fustpu.mesh.unstructured import from_box
-    from fustpu.ops import pallas_gather as pg
-    from fustpu.parallel.extruded import shard_unstructured
-
-    bm = build_box_mesh((4, 3, 3), 3, perturb=0.15, seed=4,
-                        hi=(0.006,) * 3)
-    um = from_box(bm, shuffle_seed=9)
-    assert as_extruded(um) is None
-    mat = Material(sound_speed=1480.0, density=1000.0, nonlinearity=3.5,
-                   attenuation_dB=0.2)
-    src = Source(frequency=1.1e6, amplitude=1.0e5)
-    ext = um.boundary_facets()
-    cen = um.facet_centroids(ext)
-    model = WesterveltModel(um, mat, src, ext[cen[:, 0] < 1e-9],
-                            ext[cen[:, 0] >= 1e-9], dtype=jnp.float64)
-    dt, _ = model.cfl_dt(0.4)
-    # 3 steps: the engine runs in interpret mode (per-tile Python), so
-    # steps dominate the cost; carry + all RK couplings covered at 3
-    ref, _ = model.solve(model.init_state(), dt, 3)
-    old = pg.FUSED
-    try:
-        pg.FUSED = "auto" if fused else "0"
-        sm = shard_unstructured(model, num_devices=5,
-                                stiffness_impl="indexed_engine")
-    finally:
-        pg.FUSED = old
-    if fused:
-        assert sm._fe_statics is not None and sm._eng_statics is None
-    else:
-        assert sm._eng_statics is not None and sm._fe_statics is None
-    assert sm._eng_interpret
-    ss, _ = sm.solve(sm.init_state(), dt, 3)
-    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u).ravel())
-           / np.linalg.norm(np.asarray(ref.u)))
-    assert err < 1e-12, err
-
-
 def test_sharded_nonprismatic_probe():
     """In-scan probes on the generic indexed sharded model match the
     single-device UPointSampler traces."""
@@ -423,34 +338,6 @@ def test_sharded_nonprismatic_probe():
     _, dys = sm.solve(sm.init_state(), dt, 10, probe=sm.probe_fn(pts))
     err = (np.linalg.norm(np.asarray(ys) - np.asarray(dys))
            / max(np.linalg.norm(np.asarray(ys)), 1e-300))
-    assert err < 1e-12, err
-
-
-def test_sharded_heterogeneous_pallas_pair():
-    """Heterogeneous Westervelt sharded on the per-device PAIR kernel
-    (one unit-G pass + per-cell coefficient block per stage) ==
-    single-device at 1e-12, including ghost padding (non-dividing
-    cells)."""
-    nc = (5, 4, 2)
-    mesh = build_box_mesh(nc, 3, hi=(0.006,) * 3)
-    cs = np.full(nc, 1480.0)
-    cs[2:] = 1600.0
-    rho = np.full(nc, 1000.0)
-    rho[2:] = 1060.0
-    mat = Material(sound_speed=cs, density=rho, nonlinearity=3.5,
-                   attenuation_dB=0.2)
-    src = Source(frequency=1.1e6, amplitude=1.0e5)
-    model = WesterveltModel(mesh, mat, src, mesh.boundary_facets("x-"),
-                            mesh.all_boundary_facets(),
-                            dtype=jnp.float64, stiffness_impl="mm")
-    dt, _ = model.cfl_dt(0.4)
-    ref, _ = model.solve(model.init_state(), dt, 12)
-    sm = ShardedModel(model, sh.DeviceGrid.create((2, 2, 2)),
-                      stiffness_impl="pallas")
-    assert sm._pair and any(sm.cell_pad)
-    ss, _ = sm.solve(sm.init_state(), dt, 12)
-    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u))
-           / np.linalg.norm(np.asarray(ref.u)))
     assert err < 1e-12, err
 
 
@@ -480,105 +367,6 @@ def test_sharded_unstructured_reductions_and_checkpoint(tmp_path):
     s4, _ = sm.solve(ss, dt, 5)
     err = (np.linalg.norm(sm.collect(s3.u) - sm.collect(s4.u))
            / np.linalg.norm(sm.collect(s4.u)))
-    assert err < 1e-12, err
-
-
-@pytest.mark.parametrize("model_cls,hetero", [
-    (LinearWaveModel, False), (WesterveltModel, False),
-    (WesterveltModel, True)])
-def test_sharded_extruded_pallas_matches_single(model_cls, hetero):
-    """Per-device FUSED kernel (stiffness_impl='extruded_pallas',
-    interpret mode on the CPU device mesh) through ExtrudedShardedModel
-    == the single-device solve at 1e-12 — the sharded production path
-    for imported meshes."""
-    from fustpu.mesh import msh_io
-    from fustpu.mesh.shapes import cylinder_mesh
-    from fustpu.parallel.extruded import ExtrudedShardedModel
-
-    v, c, t = cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1, nr_ann=1, nz=4)
-    p = msh_io.write_msh("/tmp/_shard_cyl3.msh", p if False else v, c, t)
-    mesh = msh_io.read_msh(p, 3)
-    if hetero:
-        zc = np.array([mesh.vertices[cc].mean(axis=0)[2]
-                       for cc in mesh.cells])
-        cs = np.where(zc < 0.01, 1500.0, 1650.0)
-    else:
-        cs = 1500.0
-    mat = Material(sound_speed=cs, density=1000.0, nonlinearity=3.5,
-                   attenuation_dB=0.3)
-    src = Source(frequency=0.5e6, amplitude=1.0e5)
-    model = model_cls(mesh, mat, src, mesh.boundary_facets(1),
-                      mesh.boundary_facets(2), dtype=jnp.float64,
-                      stiffness_impl="extruded_pallas")
-    assert model.impl == "extruded_pallas"
-    dt, _ = model.cfl_dt(0.4)
-    s, _ = model.solve(model.init_state(), dt, 15)
-    sm = ExtrudedShardedModel(model, num_devices=8)
-    assert sm._ext_pallas and sm._pallas_interpret
-    ss, _ = sm.solve(sm.init_state(), dt, 15)
-    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(s.u).ravel())
-           / np.linalg.norm(np.asarray(s.u)))
-    assert err < 1e-12, err
-
-
-@pytest.mark.parametrize("S,nc", [((2, 2, 1), (4, 4, 4)),
-                                  ((2, 2, 2), (7, 5, 3))])
-def test_sharded_pallas_corner_matches_single(S, nc):
-    """Per-device CORNER-streamed kernel (the multi-chip memory-capacity
-    mode: 37 floats/cell instead of 6/quad-point) == single-device mm,
-    including ghost-padded non-divisible cell counts (pad cells carry
-    unit geometry with zero coefficient — the kernel divides by det)."""
-    model, mat, src = _build(WesterveltModel, nc=nc, degree=2)
-    grid = sh.DeviceGrid.create(S)
-    smodel = ShardedModel(model, grid, stiffness_impl="pallas_corner")
-    assert smodel._corner and smodel.impl == "pallas"
-    dt, _ = model.cfl_dt(0.4)
-    final, _ = model.solve(model.init_state(), dt, 6)
-    ds, _ = smodel.solve(smodel.init_state(), dt, 6)
-    u = smodel.collect(ds.u)
-    err = (np.linalg.norm(u - np.asarray(final.u))
-           / np.linalg.norm(np.asarray(final.u)))
-    assert err < 1e-12, err
-
-
-def test_sharded_pallas_corner_heterogeneous():
-    """Two-layer material through the sharded corner mode (coefficient
-    folded into the per-device 37-channel stream, two streams for the
-    Westervelt pair of stiffness terms)."""
-    L = 0.006
-    mesh = build_box_mesh((4, 4, 4), 2, hi=(L, L, L))
-    cs = np.where(np.arange(4)[:, None, None] < 2, 1480.0, 1650.0)
-    cs = np.broadcast_to(cs, mesh.nc)
-    mat = Material(sound_speed=cs, density=1000.0, nonlinearity=3.5,
-                   attenuation_dB=0.2)
-    src = Source(frequency=1.1e6, amplitude=1.0e5)
-    model = WesterveltModel(mesh, mat, src, mesh.boundary_facets("x-"),
-                            mesh.all_boundary_facets(), dtype=jnp.float64)
-    grid = sh.DeviceGrid.create((2, 2, 1))
-    smodel = ShardedModel(model, grid, stiffness_impl="pallas_corner")
-    assert smodel._n_ops == 2 and not smodel._pair
-    dt, _ = model.cfl_dt(0.4)
-    final, _ = model.solve(model.init_state(), dt, 6)
-    ds, _ = smodel.solve(smodel.init_state(), dt, 6)
-    u = smodel.collect(ds.u)
-    err = (np.linalg.norm(u - np.asarray(final.u))
-           / np.linalg.norm(np.asarray(final.u)))
-    assert err < 1e-12, err
-
-
-def test_sharded_pallas_corner_y_split():
-    """Corner mode through the per-device y-slab partition (forced)."""
-    model, mat, src = _build(LinearWaveModel, nc=(4, 6, 4), degree=2)
-    grid = sh.DeviceGrid.create((2, 1, 1))
-    smodel = ShardedModel(model, grid, stiffness_impl="pallas_corner",
-                          force_y_parts=2)
-    assert smodel._y_sizes is not None
-    dt, _ = model.cfl_dt(0.4)
-    final, _ = model.solve(model.init_state(), dt, 6)
-    ds, _ = smodel.solve(smodel.init_state(), dt, 6)
-    u = smodel.collect(ds.u)
-    err = (np.linalg.norm(u - np.asarray(final.u))
-           / np.linalg.norm(np.asarray(final.u)))
     assert err < 1e-12, err
 
 
@@ -626,8 +414,9 @@ def test_unstructured_traced_reductions():
 def test_sharded_nonprismatic_hetero_pair():
     """HETEROGENEOUS Westervelt on the sharded indexed path: per-cell
     material routes through the shared-scatter pair (stiff_pair under
-    shard_map, engine-backed) and must match single-device at 1e-12 —
-    padded cells carry zero coefficients, not the uniform fold's cpad."""
+    shard_map) and must match single-device at 1e-12 over a ragged
+    5-device partition — padded cells carry zero coefficients, not the
+    uniform fold's cpad."""
     from fustpu.mesh.extruded import as_extruded
     from fustpu.mesh.unstructured import from_box
     from fustpu.parallel.extruded import shard_unstructured
@@ -649,11 +438,9 @@ def test_sharded_nonprismatic_hetero_pair():
                             ext[cen[:, 0] >= 1e-9], dtype=jnp.float64)
     assert model.uniform is False
     dt, _ = model.cfl_dt(0.4)
-    # 3 steps: interpret-mode engine pair — steps dominate the cost
-    ref, _ = model.solve(model.init_state(), dt, 3)
-    sm = shard_unstructured(model, num_devices=5,
-                            stiffness_impl="indexed_engine")
-    ss, _ = sm.solve(sm.init_state(), dt, 3)
+    ref, _ = model.solve(model.init_state(), dt, 6)
+    sm = shard_unstructured(model, num_devices=5)
+    ss, _ = sm.solve(sm.init_state(), dt, 6)
     err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u).ravel())
            / np.linalg.norm(np.asarray(ref.u)))
     assert err < 1e-12, err
@@ -664,6 +451,7 @@ def test_sharded_nonprismatic_hetero_pair():
 # analogue of the reference's parallel VTXWriter output on every rank
 # (/root/reference/numba-cpu/demo_linear_box.py:479-480)
 # ---------------------------------------------------------------------------
+
 
 @pytest.mark.parametrize("S", [(2, 2, 2), (2, 1, 1)])
 def test_dist_snapshot_box(tmp_path, S):
@@ -726,35 +514,82 @@ def test_dist_snapshot_unstructured(tmp_path):
     assert np.array_equal(assemble_snapshot(d2, "u"), sm.collect(ss.u))
 
 
-def test_sharded_extruded_corner_capacity_mode():
-    """The corner-streamed (37-floats/cell) capacity kernel through
-    ExtrudedShardedModel == single-device XLA solve at 1e-12 — the
-    sharded configuration for >10^8-DOF imported meshes (uniform AND
-    heterogeneous-pair forms)."""
-    from fustpu.parallel.extruded import ExtrudedShardedModel
+# ---------------------------------------------------------------------------
+# Box shapes that once exercised per-device kernel variants (y-split
+# slabs, single-slab pair, ghost padding), on the per-device 'mm' path
+# ---------------------------------------------------------------------------
 
-    model = _cyl_model(WesterveltModel)
-    m = WesterveltModel(model.mesh, model.material, model.source,
-                        model.mesh.boundary_facets(1),
-                        model.mesh.boundary_facets(2), dtype=jnp.float64,
-                        stiffness_impl="pallas_corner")
-    assert m.impl == "extruded_pallas" and m._ext_corner
+def _two_layer(nc):
+    cs = np.where(np.arange(nc[0])[:, None, None] < nc[0] // 2, 1480.0,
+                  1650.0)
+    rho = np.where(np.arange(nc[0])[:, None, None] < nc[0] // 2, 1000.0,
+                   1060.0)
+    return Material(sound_speed=np.broadcast_to(cs, nc),
+                    density=np.broadcast_to(rho, nc), nonlinearity=3.5,
+                    attenuation_dB=0.2)
+
+
+@pytest.mark.parametrize("model_cls,nc,degree,S,hetero", [
+    (WesterveltModel, (4, 4, 4), 2, (2, 2, 1), False),
+    (LinearWaveModel, (4, 6, 4), 2, (1, 2, 1), False),
+    (LinearWaveModel, (4, 6, 4), 2, (2, 1, 1), False),
+    (WesterveltModel, (7, 5, 3), 2, (2, 2, 2), False),
+    (WesterveltModel, (5, 4, 2), 3, (2, 2, 2), True),
+    (WesterveltModel, (4, 4, 4), 2, (2, 2, 1), True),
+    (LinearWaveModel, (5, 4, 2), 3, (2, 2, 2), True),
+], ids=["west-444-p2", "lin-464-ysplit", "lin-464-xsplit",
+        "west-753-p2-ghost", "west-hetero-542-ghost", "west-hetero-444",
+        "lin-hetero-542-ghost"])
+def test_sharded_box_shapes_match_single(model_cls, nc, degree, S,
+                                         hetero):
+    L = 0.006
+    mesh = build_box_mesh(nc, degree, hi=(L, L, L))
+    mat = (_two_layer(nc) if hetero else
+           Material(sound_speed=1480.0, density=1000.0, nonlinearity=3.5,
+                    attenuation_dB=0.2))
+    src = Source(frequency=1.1e6, amplitude=1.0e5)
+    model = model_cls(mesh, mat, src, mesh.boundary_facets("x-"),
+                      mesh.all_boundary_facets(), dtype=jnp.float64)
+    assert model.uniform is not hetero
     dt, _ = model.cfl_dt(0.4)
-    # 2 steps: corner kernel runs in interpret mode here — steps dominate
-    ref, _ = model.solve(model.init_state(), dt, 2)
-    sm = ExtrudedShardedModel(m, num_devices=8)
-    assert sm._ext_corner
-    ss, _ = sm.solve(sm.init_state(), dt, 2)
-    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u).ravel())
+    ref, _ = model.solve(model.init_state(), dt, 6)
+    sm = ShardedModel(model, sh.DeviceGrid.create(S))
+    ss, _ = sm.solve(sm.init_state(), dt, 6)
+    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(ref.u))
            / np.linalg.norm(np.asarray(ref.u)))
     assert err < 1e-12, err
 
 
-@pytest.mark.slow
-def test_sharded_extruded_corner_hex27():
-    """Curved (hex27) prisms through the SHARDED corner capacity mode:
-    per-device 163-channel monomial streams with identity padding at
-    geometry order 2 == the single-device XLA solve at 1e-12."""
+@pytest.mark.parametrize("model_cls,k", [
+    (LinearWaveModel, 8), (LinearWaveModel, 3), (WesterveltModel, 3)])
+def test_sharded_extruded_heterogeneous(model_cls, k):
+    """Two-layer media on the sharded extruded path for both models and
+    a non-power-of-2 device count (the linear model folds one
+    coefficient, Westervelt runs the pair)."""
+    from fustpu.parallel.extruded import ExtrudedShardedModel
+
+    base = _cyl_model(model_cls)
+    mesh = base.mesh
+    zc = np.array([mesh.vertices[cc].mean(axis=0)[2] for cc in mesh.cells])
+    mat = Material(sound_speed=np.where(zc < 0.01, 1500.0, 1650.0),
+                   density=np.where(zc < 0.01, 1000.0, 1100.0),
+                   nonlinearity=3.5, attenuation_dB=0.3)
+    model = model_cls(mesh, mat, base.source, mesh.boundary_facets(1),
+                      mesh.boundary_facets(2), dtype=jnp.float64)
+    assert not model.uniform
+    dt, _ = model.cfl_dt(0.4)
+    s, _ = model.solve(model.init_state(), dt, 10)
+    sm = ExtrudedShardedModel(model, num_devices=k)
+    ss, _ = sm.solve(sm.init_state(), dt, 10)
+    err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(s.u).ravel())
+           / np.linalg.norm(np.asarray(s.u)))
+    assert err < 1e-12, err
+
+
+def test_sharded_extruded_hex27():
+    """Curved (hex27) prisms through the sharded extruded path: per-device
+    z-expanded G blocks of the quadratic geometry == the single-device
+    solve at 1e-12."""
     import dataclasses
 
     from fustpu.elements.hex import hex8_tabulate
@@ -766,9 +601,8 @@ def test_sharded_extruded_corner_hex27():
                      for j in range(3) for k in range(3)])
 
     def phi(x):
-        # the same gentle prismatic curvature test_extruded's hex27
-        # gate uses (vertex columns survive; layers curved and graded),
-        # scaled to a physical mm-class domain
+        # prismatic curvature (vertex columns survive; layers curved and
+        # graded), scaled to a mm-class domain
         x = np.asarray(x, np.float64)
         out = x.copy()
         out[..., 0] = x[..., 0] + 0.04 * np.sin(1.3 * x[..., 1])
@@ -790,21 +624,14 @@ def test_sharded_extruded_corner_hex27():
     ext = curved.boundary_facets()
     cen = curved.facet_centroids(ext)
     xmin = cen[:, 0].min()
-    args = (curved, mat, src, ext[cen[:, 0] < xmin + 1e-6],
-            ext[cen[:, 0] >= xmin + 1e-6])
-    ref = WesterveltModel(*args, dtype=jnp.float64,
-                          stiffness_impl="extruded")
-    m = WesterveltModel(*args, dtype=jnp.float64,
-                        stiffness_impl="pallas_corner")
-    assert m.impl == "extruded_pallas" and m._ext_corner
-    dt, _ = ref.cfl_dt(0.4)
-    # 2 steps / 3 devices: the 1e-12 trajectory gate couples all four RK
-    # stages each step and the carry across steps; interpret-mode hex27
-    # (163 channels) makes extra steps and extra shards pure cost
-    s0, _ = ref.solve(ref.init_state(), dt, 2)
-    sm = ExtrudedShardedModel(m, num_devices=3)
-    assert sm._ext_corner
-    ss, _ = sm.solve(sm.init_state(), dt, 2)
+    model = WesterveltModel(curved, mat, src, ext[cen[:, 0] < xmin + 1e-6],
+                            ext[cen[:, 0] >= xmin + 1e-6],
+                            dtype=jnp.float64)
+    assert model.impl == "extruded"
+    dt, _ = model.cfl_dt(0.4)
+    s0, _ = model.solve(model.init_state(), dt, 6)
+    sm = ExtrudedShardedModel(model, num_devices=3)
+    ss, _ = sm.solve(sm.init_state(), dt, 6)
     err = (np.linalg.norm(sm.collect(ss.u) - np.asarray(s0.u).ravel())
            / np.linalg.norm(np.asarray(s0.u)))
     assert err < 1e-12, err

@@ -1,5 +1,6 @@
-"""The matmul-formulation fast path must agree with the (already
-oracle-verified) structured operators to roundoff."""
+"""The structured ('mm') apply must agree with the (already
+oracle-verified) einsum reference on the structured layout to roundoff,
+and its expanded-grid layout must line up with the element windows."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,22 +23,34 @@ def setup(request):
 
 
 def test_expand_fold_match_windows(setup):
+    """The expanded-grid layout the operator stores G in
+    (to_expanded_layout, expand_cell_field) reshapes to exactly the
+    element batch windows3d gathers, and folding it back with fold3d is
+    the indexed scatter-add."""
+    from fustpu.ops import gather_scatter as gs
+
     mesh, detJ, G = setup
     P = mesh.degree
-    elem = HexElement(P)
-    op = mm.build_stiffness(mesh.nc, P, elem.deriv_1d, G, jnp.float64)
+    n = P + 1
     rng = np.random.default_rng(0)
     x = rng.standard_normal(mesh.grid_shape)
-    u = np.asarray(mm.expand(op, jnp.asarray(x)))
-    # expanded layout equals the indexed gather
-    n = P + 1
-    ue = u.reshape(mesh.nc[0], n, mesh.nc[1], n, mesh.nc[2], n)
-    ue = ue.transpose(0, 2, 4, 1, 3, 5).reshape(mesh.num_cells, -1)
-    assert np.array_equal(ue, x.ravel()[mesh.dofmap])
-    # fold is the adjoint
-    y = np.asarray(mm.fold(op, jnp.asarray(u)))
+    cells = x.ravel()[mesh.dofmap]                   # (cells, n^3)
+    ue = mm.to_expanded_layout(cells, mesh.nc, n)    # (ex, ey, ez)
+    win = np.asarray(gs.windows3d(jnp.asarray(x), P))
+    assert np.array_equal(ue.reshape(win.shape), win)
+    op = mm.build_stiffness(mesh.nc, P, HexElement(P).deriv_1d, G,
+                            jnp.float64)
+    assert np.allclose(np.asarray(op.G),
+                       np.moveaxis(mm.to_expanded_layout(G, mesh.nc, n),
+                                   -1, 0))
+    coeff = rng.uniform(0.5, 2.0, mesh.nc)
+    ce = mm.expand_cell_field(coeff, n)
+    assert np.array_equal(
+        ce, mm.to_expanded_layout(
+            np.repeat(coeff.reshape(-1, 1), n ** 3, axis=1), mesh.nc, n))
+    y = np.asarray(gs.fold3d(jnp.asarray(ue.reshape(win.shape)), P))
     y_ref = np.zeros(mesh.ndofs)
-    np.add.at(y_ref, mesh.dofmap.ravel(), ue.ravel())
+    np.add.at(y_ref, mesh.dofmap.ravel(), cells.ravel())
     assert np.allclose(y.ravel(), y_ref, atol=1e-12)
 
 

@@ -234,7 +234,6 @@ def test_dof_merge_survives_bin_straddle():
         assert mesh.ndofs == expect, (k, mesh.ndofs, expect)
 
 
-
 def test_msh_missing_sections_raise(tmp_path):
     """A .msh missing a required section must raise a clear ValueError,
     and a v4.1 file without $Entities (legal when there are no physical
@@ -341,203 +340,6 @@ def test_msh_binary_v41(tmp_path):
     assert len(mesh.boundary_facets(42)) == 1
 
 
-def test_indexed_engine_matches_plain():
-    """The windowed one-hot gather/scatter engine (pallas_gather,
-    interpret mode here; the TPU fast path for general unstructured
-    meshes) reproduces the plain indexed solve."""
-    import jax.numpy as jnp
-
-    from fustpu.config import Material, Source
-    from fustpu.mesh import msh_io
-    from fustpu.mesh.shapes import cylinder_mesh
-    from fustpu.models.linear import LinearWaveModel
-
-    v, c, t = cylinder_mesh(0.012, 0.02, 0.008, m=3, mr=1, nr_ann=1, nz=3)
-    p = msh_io.write_msh("/tmp/_eng_cyl.msh", v, c, t)
-    mesh = msh_io.read_msh(p, 3, detect_extrusion=False)
-    mat = Material(sound_speed=1500.0, density=1000.0)
-    src = Source(frequency=0.5e6, amplitude=1e5)
-    from fustpu.ops import pallas_gather as pg
-
-    outs = []
-    # three legs: plain indexed, 3-kernel engine (FUSED off), and the
-    # fused single-kernel engine (the production default)
-    old = pg.FUSED
-    try:
-        for impl, fused in (("indexed", "0"), ("indexed_engine", "0"),
-                            ("indexed_engine", "auto")):
-            pg.FUSED = fused
-            m = LinearWaveModel(mesh, mat, src, mesh.boundary_facets(1),
-                                mesh.boundary_facets(2),
-                                dtype=jnp.float64, stiffness_impl=impl)
-            assert m.impl == impl
-            if impl == "indexed_engine":
-                assert m._idx_engine is not None and m._engine_interpret
-                assert (m._idx_fused is not None) == (fused == "auto")
-            dt, _ = m.cfl_dt(0.4)
-            s, _ = m.solve(m.init_state(), dt, 6)
-            outs.append(np.asarray(s.u).ravel())
-    finally:
-        pg.FUSED = old
-    for other in outs[1:]:
-        err = (np.linalg.norm(outs[0] - other)
-               / max(np.linalg.norm(outs[0]), 1e-300))
-        assert err < 1e-11, err
-
-
-def test_gather_engine_primitives():
-    """pallas_gather gather/scatter_add vs plain indexing (interpret),
-    including the split-window and spill paths (tiny WR forces both)."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(3)
-    nsrc, N = 4000, 7000
-    g = np.clip(np.arange(N) * 0.55 + rng.integers(-900, 900, N),
-                0, nsrc - 1).astype(np.int64)
-    plan = pg.build_plan(g, nsrc, WR=8)
-    import jax.numpy as jnp
-
-    x = jnp.asarray(rng.standard_normal(nsrc), jnp.float32)
-    out = np.asarray(pg.gather(x, plan, interpret=True))
-    assert np.array_equal(out, np.asarray(x)[g])
-    vals = jnp.asarray(rng.standard_normal(N), jnp.float32)
-    y = np.asarray(pg.scatter_add(vals, plan, nsrc, interpret=True))
-    ref = np.zeros(nsrc, np.float32)
-    np.add.at(ref, g, np.asarray(vals))
-    err = np.abs(y - ref).max() / np.abs(ref).max()
-    assert err < 1e-5, err     # f32 summation-order only
-
-
-def test_gather_engine_tile_size_knob():
-    """Plans carry their own tile size TM (statics[-1], default 2048 or
-    FUSTPU_ENGINE_TM): a non-default tm round-trips gather/gather2/
-    scatter_add in interpret mode, and the env parser rejects junk."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(7)
-    nsrc, N = 9000, 5000
-    g = np.sort(rng.integers(0, nsrc, N)).astype(np.int64)
-    import jax.numpy as jnp
-
-    x = jnp.asarray(rng.standard_normal(nsrc), jnp.float64)
-    ref = np.zeros(nsrc)
-    vals = rng.standard_normal(N)
-    np.add.at(ref, g, vals)
-    for tm in (512, 4096):
-        plan = pg.build_plan(g, nsrc, tm=tm)
-        assert plan.statics[-1] == tm
-        assert plan.statics[1] == -(-(N + 1) // tm)   # tile count
-        out = np.asarray(pg.gather(x, plan, interpret=True))
-        assert np.array_equal(out, np.asarray(x)[g])
-        o1, o2 = pg.gather2(x, 2.0 * x, plan, interpret=True)
-        assert np.array_equal(np.asarray(o1), np.asarray(x)[g])
-        assert np.array_equal(np.asarray(o2), 2.0 * np.asarray(x)[g])
-        y = np.asarray(pg.scatter_add(jnp.asarray(vals), plan, nsrc,
-                                      interpret=True))
-        assert np.abs(y - ref).max() < 1e-12
-
-    import os
-    prior = os.environ.get("FUSTPU_ENGINE_TM")   # restore the user's knob
-    try:
-        for bad in ("abc", "100", "-8", "0"):
-            os.environ["FUSTPU_ENGINE_TM"] = bad
-            with pytest.raises(ValueError):
-                pg._tm_from_env()
-        del os.environ["FUSTPU_ENGINE_TM"]
-        assert pg._tm_from_env() == 2048
-    finally:
-        if prior is None:
-            os.environ.pop("FUSTPU_ENGINE_TM", None)
-        else:
-            os.environ["FUSTPU_ENGINE_TM"] = prior
-
-
-def test_gather_engine_subw_widening():
-    """SUBW (sub-tiles per one-hot MXU dispatch, packed layout) is a
-    pure dispatch-width knob: gather/gather2 stay bit-exact and the
-    scatter stays at f64 roundoff for ragged (3), aligned (4) and
-    whole-tile (16) widths, plus over-wide clamping (64 -> rows).  The
-    env parser rejects junk."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(21)
-    nsrc, N = 9000, 11000
-    g = np.sort(rng.integers(0, nsrc, N)).astype(np.int64)
-    x = jnp.asarray(rng.standard_normal(nsrc), jnp.float64)
-    vals = rng.standard_normal(N)
-    ref = np.zeros(nsrc)
-    np.add.at(ref, g, vals)
-    old = pg.SUBW
-    try:
-        for sw in (3, 4, 16, 64):
-            pg.SUBW = sw
-            for f in (pg.gather, pg.gather2, pg.scatter_add):
-                f.clear_cache()
-            plan = pg.build_plan(g, nsrc)
-            out = np.asarray(pg.gather(x, plan, interpret=True))
-            assert np.array_equal(out, np.asarray(x)[g]), sw
-            o1, o2 = pg.gather2(x, 2.0 * x, plan, interpret=True)
-            assert np.array_equal(np.asarray(o1), np.asarray(x)[g]), sw
-            assert np.array_equal(np.asarray(o2),
-                                  2.0 * np.asarray(x)[g]), sw
-            y = np.asarray(pg.scatter_add(jnp.asarray(vals), plan, nsrc,
-                                          interpret=True))
-            assert np.abs(y - ref).max() < 1e-12, sw
-    finally:
-        pg.SUBW = old
-        for f in (pg.gather, pg.gather2, pg.scatter_add):
-            f.clear_cache()
-
-    import os
-    prior = os.environ.get("FUSTPU_ENGINE_SUBW")
-    try:
-        for bad in ("abc", "0", "-4"):
-            os.environ["FUSTPU_ENGINE_SUBW"] = bad
-            with pytest.raises(ValueError):
-                pg._subw_from_env()
-        del os.environ["FUSTPU_ENGINE_SUBW"]
-        assert pg._subw_from_env() == 1
-    finally:
-        if prior is None:
-            os.environ.pop("FUSTPU_ENGINE_SUBW", None)
-        else:
-            os.environ["FUSTPU_ENGINE_SUBW"] = prior
-    # the VMEM cap: wide windows shrink the effective width
-    try:
-        pg.SUBW = 16
-        assert pg._subw_eff(64, 2, 16) == 16    # bench-scale: uncapped
-        assert pg._subw_eff(512, 2, 16) == 4    # 1024-row windows: capped
-        assert pg._subw_eff(512, 2, 2) == 2     # never wider than the tile
-    finally:
-        pg.SUBW = old
-
-
-def test_gather_engine_lanepick_dg():
-    """The dynamic-gather lane-pick variant (LANEPICK='dg') returns the
-    same exact gather/gather2 results as the one-hot baseline."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(11)
-    nsrc, N = 6000, 4000
-    g = np.sort(rng.integers(0, nsrc, N)).astype(np.int64)
-    plan = pg.build_plan(g, nsrc)
-    x = jnp.asarray(rng.standard_normal(nsrc), jnp.float64)
-    old = pg.LANEPICK
-    try:
-        pg.LANEPICK = "dg"
-        pg.gather.clear_cache()
-        pg.gather2.clear_cache()
-        out = np.asarray(pg.gather(x, plan, interpret=True))
-        o1, o2 = pg.gather2(x, 3.0 * x, plan, interpret=True)
-    finally:
-        pg.LANEPICK = old
-        pg.gather.clear_cache()
-        pg.gather2.clear_cache()
-    assert np.array_equal(out, np.asarray(x)[g])
-    assert np.array_equal(np.asarray(o1), np.asarray(x)[g])
-    assert np.array_equal(np.asarray(o2), 3.0 * np.asarray(x)[g])
-
-
 def test_reorder_cells_preserves_solve():
     """reorder_cells (the locality_order mechanism) is a pure
     relabelling: the solve on a randomly permuted-cell mesh matches the
@@ -577,11 +379,11 @@ def test_reorder_cells_preserves_solve():
 
 
 def test_locality_order_shrinks_windows():
-    """locality_order picks the sweep that minimises the engine window
-    count on a mesh whose file order fronts badly (x-major order on a
+    """locality_order picks the sweep that minimises the first-touch DOF
+    span on a mesh whose file order fronts badly (x-major order on a
     long-z column => sweep-z wins), and never worsens the file order."""
-    from fustpu.mesh.unstructured import locality_order, reorder_cells
-    from fustpu.ops.pallas_gather import pick_wr
+    from fustpu.mesh.unstructured import dof_span, locality_order, \
+        reorder_cells
 
     mesh = build_box_mesh((6, 6, 40), 3, hi=(0.01, 0.01, 0.08))
     umesh = from_box(mesh)                     # x-major cell order
@@ -589,22 +391,28 @@ def test_locality_order_shrinks_windows():
     worst = reorder_cells(
         umesh, np.lexsort((np.arange(umesh.num_cells),)))
     lo = locality_order(worst)
-    wr_before = pick_wr(worst.dofmap.reshape(-1).astype(np.int64))
-    wr_after = pick_wr(lo.dofmap.reshape(-1).astype(np.int64))
-    assert wr_after <= wr_before
+    span_before = dof_span(worst.dofmap)
+    span_after = dof_span(lo.dofmap)
+    assert span_after <= span_before
     assert lo.ndofs == worst.ndofs
-    # idempotent-ish: applying again never increases the window
-    again = locality_order(lo)
-    wr2 = pick_wr(again.dofmap.reshape(-1).astype(np.int64))
-    assert wr2 <= wr_after
+    # idempotent-ish: applying again never increases the span
+    assert dof_span(locality_order(lo).dofmap) <= span_after
+
+
+@pytest.mark.parametrize("tile,want", [(4, 6), (3, 5), (100, 12)])
+def test_dof_span(tile, want):
+    """dof_span = the largest max-min+1 over runs of `tile` consecutive
+    flat dofmap entries (a short last run is padded, not dropped)."""
+    from fustpu.mesh.unstructured import dof_span
+
+    dm = np.array([[0, 1, 2, 5], [3, 4, 6, 8], [9, 11, 10, 7]])
+    assert dof_span(dm, tile) == want
 
 
 def test_indexed_pair_matches_two_applies():
     """stiffness_apply_indexed_pair (single shared scatter — the
-    Westervelt heterogeneous fold) == two separate applies, plain and
-    engine-backed, at f64 exactness."""
-    from fustpu.ops import pallas_gather as pg
-
+    Westervelt heterogeneous fold) == two separate applies at f64
+    exactness."""
     mesh, umesh = _shuffled_box_umesh(nc=(3, 3, 2), P=3)
     rng = np.random.default_rng(2)
     x1 = jnp.asarray(rng.standard_normal(umesh.ndofs))
@@ -615,308 +423,9 @@ def test_indexed_pair_matches_two_applies():
     G = jnp.asarray(np.moveaxis(G, 2, 0))      # component-major layout
     D = jnp.asarray(umesh.element.deriv_1d)
     dm = jnp.asarray(umesh.dofmap)
-    plan = pg.build_plan(umesh.dofmap.reshape(-1).astype(np.int64),
-                         umesh.ndofs)
-    for kw in ({}, dict(engine=plan, engine_interpret=True)):
-        want = (ops.stiffness_apply_indexed(x1, G, c1, dm, D,
-                                            umesh.ndofs, **kw)
-                + ops.stiffness_apply_indexed(x2, G, c2, dm, D,
-                                              umesh.ndofs, **kw))
-        got = ops.stiffness_apply_indexed_pair(x1, c1, x2, c2, G, dm, D,
-                                               umesh.ndofs, **kw)
-        err = float(jnp.linalg.norm(got - want)
-                    / jnp.linalg.norm(want))
-        assert err < 1e-13, (kw, err)
-
-
-def test_gather2_matches_gather():
-    """The shared-H two-field gather == two single gathers (interpret),
-    including spill entries."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(8)
-    nsrc, N = 4000, 7000
-    g = np.clip(np.arange(N) * 0.55 + rng.integers(-900, 900, N),
-                0, nsrc - 1).astype(np.int64)
-    plan = pg.build_plan(g, nsrc, WR=8)      # tiny WR -> heavy spill
-    assert plan.spos.shape[0] > 0
-    x1 = jnp.asarray(rng.standard_normal(nsrc), jnp.float32)
-    x2 = jnp.asarray(rng.standard_normal(nsrc), jnp.float32)
-    a1, a2 = pg.gather2(x1, x2, plan, interpret=True)
-    assert np.array_equal(np.asarray(a1), np.asarray(x1)[g])
-    assert np.array_equal(np.asarray(a2), np.asarray(x2)[g])
-
-
-def test_gather_engine_two_windows():
-    """Large-front meshes cap the window row count; the plan then takes
-    TWO independently-placed windows per tile (bimodal fresh/old-layer
-    references).  Exactness of gather/scatter/gather2 incl. residual
-    spill, and the auto nwin choice."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(1)
-    g = np.concatenate([np.arange(3000), 80000 + np.arange(3000),
-                        np.arange(1500) * 50])
-    g = g[rng.permutation(g.size)]
-    plan = pg.build_plan(g, 90000, WR=24)
-    assert plan.statics[4] == 2 and plan.spos.shape[0] > 0
-    x = jnp.asarray(rng.standard_normal(90000), jnp.float32)
-    out = np.asarray(pg.gather(x, plan, interpret=True))
-    assert np.array_equal(out, np.asarray(x)[g])
-    v = jnp.asarray(rng.standard_normal(g.size), jnp.float32)
-    y = np.asarray(pg.scatter_add(v, plan, 90000, interpret=True))
-    ref = np.zeros(90000, np.float32)
-    np.add.at(ref, g, np.asarray(v))
-    assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-5
-    a1, a2 = pg.gather2(x, x * 2, plan, interpret=True)
-    assert np.array_equal(np.asarray(a1), np.asarray(x)[g])
-    assert np.allclose(np.asarray(a2), 2 * np.asarray(x)[g])
-    # a small-span set stays single-window
-    assert pg.build_plan(np.arange(5000), 6000).statics[4] == 1
-
-    # forced nwin=2 on a single-cluster set: every tile's second window
-    # COINCIDES with its first (s2 == s0) — the overlapping-window
-    # serialised RMW branch of the scatter kernel, which must still be
-    # exact (the disjoint fast path is the cases above)
-    g2 = np.sort(rng.integers(0, 1800, 5000)).astype(np.int64)
-    plan2 = pg.build_plan(g2, 2000, WR=16, nwin=2)
-    assert plan2.statics[4] == 2
-    woff = np.asarray(plan2.woff)
-    assert (np.abs(woff[1] - woff[0]) < 16).any()   # overlap branch hit
-    v2 = jnp.asarray(rng.standard_normal(g2.size), jnp.float32)
-    y2 = np.asarray(pg.scatter_add(v2, plan2, 2000, interpret=True))
-    ref2 = np.zeros(2000, np.float32)
-    np.add.at(ref2, g2, np.asarray(v2))
-    assert np.abs(y2 - ref2).max() / np.abs(ref2).max() < 1e-5
-
-
-def test_stacked_plans_two_window_ladder():
-    """build_stacked_plans picks the SAME tight-window ladder as
-    build_plan (it previously always sized one-window plans from the
-    full tile span): two far-apart clusters per tile on every device
-    must yield a common nwin=2 plan with the per-cluster WR, and each
-    device's gather/scatter must stay exact (incl. a device whose
-    second cluster sits elsewhere — per-device window placement)."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(7)
-    nsrc = 120000
-
-    def two_cluster(base2):
-        g = np.concatenate([np.arange(4000), base2 + np.arange(4000)])
-        return g[rng.permutation(g.size)]
-
-    gs = [two_cluster(60000), two_cluster(100000)]
-    ew, ec, es, ei, statics = pg.build_stacked_plans(gs, nsrc)
-    WR, _, _, N, nwin, _ = statics
-    assert nwin == 2
-    assert WR <= 64          # per-cluster sizing, not the ~500-row span
-    for d, g in enumerate(gs):
-        plan = pg.GatherPlan(jnp.asarray(ew[d]), jnp.asarray(ec[d]),
-                             jnp.asarray(es[d]), jnp.asarray(ei[d]),
-                             statics)
-        x = jnp.asarray(rng.standard_normal(nsrc), jnp.float32)
-        out = np.asarray(pg.gather(x, plan, interpret=True))[:g.size]
-        assert np.array_equal(out, np.asarray(x)[g])
-        v = jnp.asarray(rng.standard_normal(g.size), jnp.float32)
-        y = np.asarray(pg.scatter_add(v, plan, nsrc, interpret=True))
-        ref = np.zeros(nsrc, np.float32)
-        np.add.at(ref, g, np.asarray(v))
-        assert np.abs(y - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
-
-
-def test_gather_engine_packed_layout():
-    """The packed (N/128, 128) stream layout (transposed one-hot,
-    sublane pick) round-trips gather/gather2/scatter_add exactly and
-    agrees bit-for-bit with the column layout — incl. two-window plans,
-    dead padding and spill entries.  (The (N, 1) column streams lane-pad
-    128x in HBM; packed is the default, col kept for A/B.)"""
-    import jax.numpy as jnp
-
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(11)
-    nsrc, N = 60000, 50000
-    # clustered + a far cluster so the two-window mode engages
-    g = np.sort(rng.integers(0, nsrc // 2, N)).astype(np.int64)
-    g[::7] += nsrc // 2 - 1000
-    x = jnp.asarray(rng.standard_normal(nsrc), jnp.float64)
-    x2 = 3.0 * x
-    vals = jnp.asarray(rng.standard_normal(N), jnp.float64)
-    ref = np.zeros(nsrc)
-    np.add.at(ref, g, np.asarray(vals))
-    old = pg.LAYOUT
-    try:
-        outs = {}
-        for layout in ("col", "packed"):
-            pg.LAYOUT = layout
-            plan = pg.build_plan(g, nsrc)
-            assert pg._plan_packed(plan) == (layout == "packed")
-            outs[layout] = (
-                np.asarray(pg.gather(x, plan, interpret=True)),
-                np.asarray(pg.gather2(x, x2, plan, interpret=True)[1]),
-                np.asarray(pg.scatter_add(vals, plan, nsrc,
-                                          interpret=True)))
-        # gathers are pure selections -> bitwise equal across layouts;
-        # the scatter accumulates in a different association order (one
-        # tile-wide matmul vs 16 sub-tile matmuls) -> roundoff-level
-        assert np.array_equal(outs["col"][0], outs["packed"][0])
-        assert np.array_equal(outs["col"][1], outs["packed"][1])
-        assert np.abs(outs["col"][2] - outs["packed"][2]).max() < 1e-12
-        assert np.array_equal(outs["packed"][0], np.asarray(x)[g])
-        assert np.abs(outs["packed"][2] - ref).max() < 1e-12
-    finally:
-        pg.LAYOUT = old
-
-
-@pytest.mark.parametrize("nwin", [1, 2])
-def test_engine_staged_matches_unstaged(nwin):
-    """The staged kernels (field/output VMEM-resident, windows as
-    slices — the r5 scan-tax fix) are BIT-EXACT against the unstaged
-    DMA-window kernels in both directions, including two-window plans
-    whose windows overlap in rows (the staged scatter drops the
-    DMA-ordering protocol; sequential slice adds must still accumulate
-    overlapping rows correctly)."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(17)
-    nsrc, N = 60000, 50000
-    g = np.sort(rng.integers(0, nsrc // 2, N)).astype(np.int64)
-    if nwin == 2:
-        g[::7] += nsrc // 2 - 1000
-    plan = pg.build_plan(g, nsrc, nwin=nwin)
-    assert plan.statics[4] == nwin
-    x = jnp.asarray(rng.standard_normal(nsrc), jnp.float64)
-    vals = jnp.asarray(rng.standard_normal(N), jnp.float64)
-    ref_s = np.zeros(nsrc)
-    np.add.at(ref_s, g, np.asarray(vals))
-    old = pg.STAGE
-    outs = {}
-    try:
-        for stage in ("0", "1"):
-            pg.STAGE = stage
-            for f in (pg.gather, pg.gather2, pg.scatter_add):
-                f.clear_cache()
-            outs[stage] = (
-                np.asarray(pg.gather(x, plan, interpret=True)),
-                np.asarray(pg.gather2(x, 3.0 * x, plan,
-                                      interpret=True)[1]),
-                np.asarray(pg.scatter_add(vals, plan, nsrc,
-                                          interpret=True)))
-    finally:
-        pg.STAGE = old
-        for f in (pg.gather, pg.gather2, pg.scatter_add):
-            f.clear_cache()
-    for a, b in zip(outs["0"], outs["1"]):
-        assert np.array_equal(a, b)
-    assert np.array_equal(outs["1"][0], np.asarray(x)[g])
-    assert np.array_equal(outs["1"][1], 3.0 * np.asarray(x)[g])
-    assert np.abs(outs["1"][2] - ref_s).max() < 1e-12
-
-
-def test_engine_stage_gate():
-    """Auto-staging respects the probed VMEM cap: small fields stage,
-    fields past STAGE_CAP (and two-field gathers past half of it) fall
-    back to the DMA-window kernels; the col layout never stages."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(3)
-    g = np.sort(rng.integers(0, 6000, 4000)).astype(np.int64)
-    plan = pg.build_plan(g, 6000)
-    assert pg._staged(plan, jnp.float32)
-    # nrows sized so ONE f32 field fits the cap but two do not
-    nrows = (pg.STAGE_CAP - pg._STAGE_MARGIN) // (128 * 4) - 8
-    big = pg.GatherPlan(plan.woff, plan.code, plan.spos, plan.sidx,
-                        (plan.statics[0], plan.statics[1], int(nrows),
-                         plan.statics[3], plan.statics[4],
-                         plan.statics[5]))
-    assert pg._staged(big, jnp.float32)
-    assert not pg._staged(big, jnp.float32, nfields=2)
-    assert not pg._staged(big, jnp.float64)
-    old = pg.LAYOUT
-    try:
-        pg.LAYOUT = "col"
-        plan_c = pg.build_plan(g, 6000)
-        assert not pg._staged(plan_c, jnp.float32)
-    finally:
-        pg.LAYOUT = old
-
-
-def test_fused_engine_matches_engine_path():
-    """fused_apply / fused_apply_pair (gather + contraction + scatter in
-    ONE kernel, cell-row plan) match the 3-kernel engine path at f64
-    machine precision in all three modes (coeff / plain / pair), on a
-    dofmap whose cell-row plan takes two windows."""
-    from fustpu.ops import pallas_gather as pg
-    from fustpu.ops.operators import (stiffness_apply_indexed,
-                                      stiffness_apply_indexed_pair)
-
-    rng = np.random.default_rng(2)
-    n = 5
-    n3 = n ** 3
-    cells, ndofs = 300, 9000
-    dm = np.zeros((cells, n3), np.int64)
-    for c in range(cells):
-        dm[c] = min(c * 28, ndofs - n3 - 1) + rng.permutation(n3)
-    G = rng.standard_normal((cells, n3, 6))
-    D = rng.standard_normal((n, n))
-    x1 = jnp.asarray(rng.standard_normal(ndofs))
-    x2 = jnp.asarray(rng.standard_normal(ndofs))
-    c1 = jnp.asarray(rng.standard_normal(cells))
-    c2 = jnp.asarray(rng.standard_normal(cells))
-    plan = pg.build_plan(dm.ravel(), ndofs)
-    Gc = jnp.asarray(np.moveaxis(G, 2, 0))
-    Dj, dmj = jnp.asarray(D), jnp.asarray(dm)
-    fe = pg.build_fused_engine(dm, ndofs, G, D, jnp.float64)
-    assert fe is not None and fe.plan.statics[4] == 2
-    assert fe.plan.statics[1] % fe.statics[3] == 0   # supertile-aligned
-    pairs = [
-        (stiffness_apply_indexed(x1, Gc, c1, dmj, Dj, ndofs, engine=plan,
-                                 engine_interpret=True),
-         pg.fused_apply(x1, c1, fe, ndofs, interpret=True)),
-        (stiffness_apply_indexed(x1, Gc, None, dmj, Dj, ndofs,
-                                 engine=plan, engine_interpret=True),
-         pg.fused_apply(x1, None, fe, ndofs, interpret=True)),
-        (stiffness_apply_indexed_pair(x1, c1, x2, c2, Gc, dmj, Dj,
-                                      ndofs, engine=plan,
-                                      engine_interpret=True),
-         pg.fused_apply_pair(x1, c1, x2, c2, fe, ndofs,
-                             interpret=True)),
-    ]
-    for ref, out in pairs:
-        err = (float(jnp.max(jnp.abs(ref - out)))
-               / float(jnp.max(jnp.abs(ref))))
-        assert err < 1e-12, err
-
-
-def test_fused_engine_eligibility():
-    """build_fused_engine declines P>4 (n^3 > 128 cell rows), spilling
-    plans, and FUSTPU_ENGINE_FUSED=0."""
-    from fustpu.ops import pallas_gather as pg
-
-    rng = np.random.default_rng(4)
-    n3 = 216                      # P=5
-    dm = np.arange(40 * n3).reshape(40, n3) % 5000
-    G = np.ones((40, n3, 6))
-    D = np.eye(6)
-    assert pg.build_fused_engine(dm, 5000, G, D, jnp.float64) is None
-    # spilling plan: random far-flung ids blow the window ladder
-    n3 = 125
-    dm = rng.integers(0, 4_000_000, (400, n3)).astype(np.int64)
-    G = np.ones((400, n3, 6))
-    D = np.eye(5)
-    assert pg.build_fused_engine(dm, 4_000_000, G, D,
-                                 jnp.float64) is None
-    # kill switch
-    dm = (np.arange(400)[:, None] * 20
-          + np.arange(n3)[None, :]).astype(np.int64)
-    old = pg.FUSED
-    try:
-        pg.FUSED = "0"
-        assert pg.build_fused_engine(dm, 10000, G, D,
-                                     jnp.float64) is None
-        pg.FUSED = "auto"
-        assert pg.build_fused_engine(dm, 10000, G, D,
-                                     jnp.float64) is not None
-    finally:
-        pg.FUSED = old
+    want = (ops.stiffness_apply_indexed(x1, G, c1, dm, D, umesh.ndofs)
+            + ops.stiffness_apply_indexed(x2, G, c2, dm, D, umesh.ndofs))
+    got = ops.stiffness_apply_indexed_pair(x1, c1, x2, c2, G, dm, D,
+                                           umesh.ndofs)
+    err = float(jnp.linalg.norm(got - want) / jnp.linalg.norm(want))
+    assert err < 1e-13, err

@@ -4,6 +4,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from fustpu.config import Material, Source
 from fustpu.mesh.box import build_box_mesh
@@ -332,3 +333,58 @@ def test_degree_transfer_restart_upgrade():
     b = PointSampler(m6, pts).sample(np.asarray(s6b.u))
     scale = np.abs(np.asarray(s4b.u)).max()
     assert abs(a[0] - b[0]) < 0.05 * scale, (a, b, scale)
+
+
+@pytest.mark.parametrize("env_set", [True, False], ids=["env", "repo"])
+def test_compile_cache_dir(env_set, monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins where set; otherwise the cache is
+    the fixed <repo>/.jax_cache, and enable_compile_cache points JAX
+    there."""
+    import os
+    from pathlib import Path
+
+    import jax
+
+    from fustpu.utils import compile_cache as cc
+
+    repo = Path(__file__).resolve().parent.parent
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        want = str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(str(repo), ".jax_cache")
+    assert cc.compile_cache_dir() == want
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert cc.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_measurement_refuses_cpu(monkeypatch):
+    """The benchmark helpers name the device and refuse to time a CPU;
+    without nvidia-smi the card line is empty, not an error."""
+    import jax
+
+    from fustpu.utils import benchmarks as B
+
+    with pytest.raises(SystemExit, match="no GPU"):
+        B.require_gpu()
+    dev = jax.devices()[0]
+    assert B.device_fields(dev) == {"platform": "cpu",
+                                    "kind": dev.device_kind,
+                                    "count": len(jax.devices())}
+    monkeypatch.setenv("PATH", "")
+    assert B.card_info() == ""
+
+
+def test_bench_operators_small():
+    """bench_operators times the mass and the structured stiffness apply
+    (blocking on each timed call) at a small size."""
+    from fustpu.utils import benchmarks as B
+
+    res = B.bench_operators(nc=4, degree=2, reps=2, chain=2)
+    assert [r.name for r in res] == ["mass", "stiffness"]
+    assert all(r.mean_s > 0 and r.ndofs == 9 ** 3 for r in res)
